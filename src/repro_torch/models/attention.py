@@ -1,0 +1,90 @@
+"""Attention over contiguous K/V, in plain torch (matmul + softmax), as the
+JAX package leaves these to XLA.
+
+* :func:`chunked_attention` — prefill attention, chunked over queries so the
+  [Sq, Skv] score matrix is never materialised whole.  The engine's cold
+  prefill uses it.
+* :func:`decode_attention` — one-token decode over a contiguous per-sequence
+  cache; the dense oracle's decode path.
+
+The engine's device-row decode attention over the paged pool is the CUDA
+kernel in :mod:`repro_torch.kernels.paged_decode`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    """[..., KV, hd] -> [..., KV*q_per_kv, hd] (each kv head repeated)."""
+    if q_per_kv == 1:
+        return k
+    return k.repeat_interleave(q_per_kv, dim=-2)
+
+
+def chunked_attention(
+    q: torch.Tensor,  # [B, Sq, H, hd]
+    k: torch.Tensor,  # [B, Skv, KV, hd]
+    v: torch.Tensor,  # [B, Skv, KV, hd]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Full (optionally causal / sliding-window) attention, chunked over Sq.
+
+    ``q_offset`` is the absolute position of q[:, 0] relative to k[:, 0].
+    The last chunk may be ragged (the reference needs ``Sq % q_chunk == 0``
+    because its lengths are padded to power-of-two buckets; the port's are
+    not).
+    """
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    q_per_kv = H // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    k = _repeat_kv(k, q_per_kv)  # [B, Skv, H, hd]
+    v = _repeat_kv(v, q_per_kv)
+    kv_pos = torch.arange(Skv, device=q.device)
+    outs = []
+    for c0 in range(0, Sq, q_chunk):
+        qi = q[:, c0:c0 + q_chunk]
+        q_pos = q_offset + c0 + torch.arange(qi.shape[1], device=q.device)
+        s = torch.einsum("bchd,bshd->bchs", qi, k).float() * scale
+        mask = torch.ones((qi.shape[1], Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= kv_pos[None, :]
+        if window:
+            mask &= q_pos[:, None] - kv_pos[None, :] < window
+        s = torch.where(mask[None, :, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bchs,bshd->bchd", p.to(v.dtype), v))
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, H, hd]
+    k_cache: torch.Tensor,  # [B, S, KV, hd] (already includes the new token)
+    v_cache: torch.Tensor,
+    lens: torch.Tensor,  # [B] int — number of valid tokens (incl. new one)
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    B, S, KV, hd = k_cache.shape
+    q_per_kv = q.shape[1] // KV
+    scale = 1.0 / math.sqrt(hd)
+    kr = _repeat_kv(k_cache, q_per_kv)  # [B, S, H, hd]
+    vr = _repeat_kv(v_cache, q_per_kv)
+    s = torch.einsum("bhd,bshd->bhs", q, kr).float() * scale
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] < lens[:, None]
+    if window:
+        mask &= pos[None, :] >= (lens[:, None] - window)
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p.to(vr.dtype), vr)

@@ -32,3 +32,8 @@ def run_subprocess(code: str, devices: int = 8, timeout: int = 600) -> str:
     )
     assert out.returncode == 0, f"subprocess failed:\n{out.stdout}\n{out.stderr}"
     return out.stdout
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; the test skips without one")

@@ -1,0 +1,107 @@
+"""The port's boundaries: it imports nothing of JAX or of the JAX package,
+its entry points run on the card unless asked for the CPU, and engine
+options it has not ported raise instead of running something else."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.config import EngineConfig  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.engine import NeoEngine  # noqa: E402
+from repro_torch.core.kv_cache import DualPool  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.transformer import DenseLM  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+CFG = get_smoke_config("qwen3-0.6b")
+
+_IMPORT_CHECK = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(REPO)]))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 20  # every module was imported
+
+
+def test_no_reference_import_statements():
+    pat = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|"
+                     r"import repro\s*$|from repro import)", re.M)
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+            for f in files for m in pat.finditer(f.read_text())]
+    assert not hits, hits
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_cpu_fallback(no_cuda):
+    ecfg = EngineConfig(pipeline=False, device_pool_pages=4, host_pool_pages=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NeoEngine(CFG, ecfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DenseLM(CFG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DualPool(CFG, 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NeoEngine(CFG, ecfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--no-pipeline", "--n", "1"])
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(pipeline=True), "P7"),
+    (dict(pipeline=False, tp=2), "P13"),
+    (dict(pipeline=False, prefix_cache=True), "P9"),
+    (dict(pipeline=False, spec_decode=True), "P10"),
+    (dict(pipeline=False, tracing=True), "P8"),
+])
+def test_unported_engine_options_raise(option, item):
+    with pytest.raises(NotImplementedError, match=item):
+        NeoEngine(CFG, EngineConfig(**option), device="cpu")
+
+
+def test_default_engine_config_is_pipelined_and_h100():
+    ecfg = EngineConfig()
+    assert ecfg.pipeline and ecfg.hw_profile == "h100_sxm"
+    with pytest.raises(NotImplementedError, match="pipeline=False"):
+        NeoEngine(CFG, ecfg, device="cpu")
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    runs = [subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], env=env,
+                           capture_output=True, text=True, timeout=300)]
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", alone)
+    runs.append(subprocess.run([sys.executable, str(alone)], env=env, cwd=tmp_path,
+                               capture_output=True, text=True, timeout=300))
+    for out in runs:
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -28,6 +28,8 @@ MAX_PAGE = 32  # lane t of a warp keeps token t's score
 MAX_GROUP = 32  # one warp per query head of a group, 1024 threads at most
 MAX_HEAD_DIM = 256
 MAX_SMEM = 48 * 1024  # static launch limit without an opt-in attribute
+BLOCKS_PER_SM = 8  # page-range split target (see split_pages)
+MIN_PAGES_PER_SPLIT = 4
 
 
 def _check(q, k_pages, v_pages, block_tables, lens) -> None:
@@ -59,10 +61,26 @@ def _check(q, k_pages, v_pages, block_tables, lens) -> None:
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("paged_decode").paged_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_pages(rows_x_kv: int, max_pages: int, sm_count: int) -> int:
+    """How many contiguous page ranges to split each row into, so that
+    ``rows_x_kv * n`` blocks give every SM about ``BLOCKS_PER_SM`` blocks,
+    with at least ``MIN_PAGES_PER_SPLIT`` pages per range and no empty
+    trailing range."""
+    want = -(-BLOCKS_PER_SM * sm_count // max(rows_x_kv, 1))
+    n = max(1, min(want, -(-max_pages // MIN_PAGES_PER_SPLIT)))
+    per = -(-max_pages // n)
+    return -(-max_pages // per)
 
 
 def _launch(q, k_pages, v_pages, block_tables, lens) -> torch.Tensor:
@@ -76,12 +94,18 @@ def _launch(q, k_pages, v_pages, block_tables, lens) -> torch.Tensor:
     out = torch.empty_like(q)
     if B == 0:
         return out
+    max_pages = block_tables.shape[1]
+    n_split = split_pages(B * KV, max_pages, _sm_count(q.device.index or 0))
+    # per (row, kv head, split, query head): unnormalised acc, then l and m
+    part = (torch.empty(B * KV * n_split * (H // KV) * (hd + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 B, H, KV, hd, page, block_tables.shape[1], 1.0 / math.sqrt(hd),
+                 part.data_ptr() if part is not None else None,
+                 B, H, KV, hd, page, max_pages, n_split, 1.0 / math.sqrt(hd),
                  _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: cudaError_t {err}")

@@ -121,12 +121,25 @@ def test_wrapper_rejects_bad_inputs():
         ops.paged_decode_attention(q, kp, vp, bt[:1], lens)
 
 
+@pytest.mark.parametrize("rows_x_kv,max_pages", [
+    (64, 50), (512, 128), (8, 129), (64, 4), (1, 1), (2048, 128), (24, 3), (1, 300)])
+def test_page_split_covers_every_page_once(rows_x_kv, max_pages):
+    n = ops.split_pages(rows_x_kv, max_pages, sm_count=132)
+    per = -(-max_pages // n)
+    assert 1 <= n <= max_pages
+    assert per * n >= max_pages > per * (n - 1)  # no empty trailing range
+    assert per >= min(ops.MIN_PAGES_PER_SPLIT, max_pages)
+    if rows_x_kv >= ops.BLOCKS_PER_SM * 132:
+        assert n == 1  # enough blocks already
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,lens", [
-    ((3, 16, 8, 128, 16, 8), [0, 17, 128]),
-    ((2, 14, 2, 112, 16, 4), [1, 64]),
+    ((3, 16, 8, 128, 16, 8), [0, 17, 128]),       # split over pages
+    ((2, 14, 2, 112, 16, 4), [1, 64]),            # one range per row
     ((4, 4, 1, 32, 8, 4), [8, 9, 32, 3]),
+    ((1, 16, 8, 128, 16, 130), [2070]),           # long row, many ranges
 ])
 def test_cuda_kernel_matches_plain(shape, lens, dtype, cuda):
     arrs = _inputs(5, *shape, lens=lens)

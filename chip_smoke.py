@@ -31,7 +31,6 @@ result.  It imports nothing of the JAX package.
 from __future__ import annotations
 
 import json
-import math
 import os
 import subprocess
 import sys

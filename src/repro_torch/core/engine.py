@@ -47,9 +47,9 @@ from repro_torch.models.api import get_model
 
 @dataclass
 class EngineStats:
-    """Counters of the reference's ``EngineStats``.  On the serial path the
-    pipelining, lane, plan-ahead and speculation counters stay at zero;
-    they are kept so summaries have the same fields on both engines."""
+    """The reference's ``EngineStats`` counters that the serial path updates
+    (the pipelining, lane, plan-ahead and speculation counters arrive with
+    those features)."""
 
     iterations: int = 0
     tokens_out: int = 0
@@ -59,31 +59,13 @@ class EngineStats:
     device_decodes: int = 0
     wall_time: float = 0.0
     host_busy_time: float = 0.0
+    # prefill + decode dispatch wall time (host attention runs inside it)
     device_busy_time: float = 0.0
-    pipeline_overlap_time: float = 0.0
-    pipeline_ideal_time: float = 0.0
-    pipelined_steps: int = 0
-    microbatched_steps: int = 0
-    serial_b1_steps: int = 0
-    borrowed_lane_steps: int = 0
-    lane_counts: Dict[int, int] = field(default_factory=dict)
+    # per-lane dispatch wall time: "prefill" and "serial" (the decode pass)
     lane_busy_time: Dict[str, float] = field(default_factory=dict)
-    swap_out_bytes: int = 0
-    swap_in_bytes: int = 0
-    swap_hidden_bytes: int = 0
-    swap_wait_time: float = 0.0
-    planahead_hits: int = 0
-    planahead_replans: int = 0
-    planahead_skipped: int = 0
     plan_busy_time: float = 0.0
-    planahead_hidden_time: float = 0.0
+    # open-loop admission control: arrivals bounced by offer()
     rejected_requests: int = 0
-    spec_steps: int = 0
-    drafted_tokens: int = 0
-    accepted_tokens: int = 0
-    rejected_drafts: int = 0
-    spec_busy_time: float = 0.0
-    accept_len_hist: Dict[int, int] = field(default_factory=dict)
     plans: List[str] = field(default_factory=list)
 
     def record_plan(self, plan: BatchPlan) -> None:
@@ -93,19 +75,6 @@ class EngineStats:
 
     def lane_add(self, lane: str, dt: float) -> None:
         self.lane_busy_time[lane] = self.lane_busy_time.get(lane, 0.0) + dt
-
-    @property
-    def bubble_fraction(self) -> float:
-        if self.pipeline_ideal_time <= 0:
-            return 0.0
-        return min(1.0, max(
-            0.0, 1.0 - self.pipeline_overlap_time / self.pipeline_ideal_time))
-
-    @property
-    def host_device_busy_ratio(self) -> float:
-        if self.device_busy_time <= 0:
-            return float("inf") if self.host_busy_time > 0 else 0.0
-        return self.host_busy_time / self.device_busy_time
 
 
 def _unsupported(engine_cfg: EngineConfig) -> Optional[str]:
@@ -224,26 +193,6 @@ class NeoEngine:
             return None
         return self.submit(prompt, max_new_tokens, arrival_time=arrival_time,
                            eos_token=eos_token)
-
-    def cancel(self, rid: int) -> bool:
-        """Mid-flight departure: free the request's KV, drop it from the
-        scheduler queues and mark it ABORTED.  Call between steps."""
-        req = self.requests.get(rid)
-        if req is None or req.state in (RequestState.FINISHED, RequestState.ABORTED):
-            return False
-        if req.pages:
-            self.pool.pool(req.location).free(req.pages)
-            req.pages = []
-        sched = self.scheduler
-        if req in sched.waitq:
-            sched.waitq.remove(req)
-        if req in sched.gpu_runq:
-            sched.gpu_runq.remove(req)
-        if req in sched.cpu_runq:
-            sched.cpu_runq.remove(req)
-        req.state = RequestState.ABORTED
-        req.finish_time = self.clock
-        return True
 
     # ------------------------------------------------------------------
     # helpers

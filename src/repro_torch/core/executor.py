@@ -117,10 +117,14 @@ class PagedExecutor:
             o = paged_ops.paged_decode_attention(q.contiguous(), pk[li], pv[li],
                                                  tables_t, lens_t)
             if len(host_idx):
-                # TrQKV -> CPU attention -> TrO
-                qh = q[host_idx_t].float().cpu().numpy()
-                kh = k[host_idx_t].float().cpu().numpy()
-                vh = v[host_idx_t].float().cpu().numpy()
+                # TrQKV (one copy) -> CPU attention -> TrO
+                R = len(host_idx)
+                qkv = torch.cat([t[host_idx_t].reshape(R, -1) for t in (q, k, v)], dim=1)
+                qkv = qkv.float().cpu().numpy()
+                nq, nk = q[0].numel(), k[0].numel()
+                qh = qkv[:, :nq].reshape(R, *q.shape[1:])
+                kh = qkv[:, nq:nq + nk].reshape(R, *k.shape[1:])
+                vh = qkv[:, nq + nk:].reshape(R, *v.shape[1:])
                 oh = self.host.run_layer(li, qh, kh, vh, host_rows=h_rows,
                                          tables=h_tables, lens=h_lens,
                                          page_ids=h_pids, offsets=h_offs)

@@ -151,16 +151,6 @@ class HostAttention:
             self.busy_time += time.perf_counter() - t0
         return out
 
-    # -- standalone oracle-checkable entry (tests) ----------------------------
-    def attend(self, layer: int, q: np.ndarray, tables: np.ndarray,
-               n_tokens: np.ndarray, window: int = 0) -> np.ndarray:
-        """Pure attention (no append): q [R,H,hd] -> [R,H,hd]."""
-        return np.stack([
-            self._row_attention(layer, q[i].astype(np.float32), tables[i],
-                                int(n_tokens[i]), window)
-            for i in range(q.shape[0])
-        ])
-
     def close(self) -> None:
         if self._tp is not None:
             self._tp.shutdown(wait=True)

@@ -21,7 +21,6 @@ from __future__ import annotations
 import threading
 from typing import Callable, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.config import ArchConfig

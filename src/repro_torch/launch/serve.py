@@ -38,8 +38,6 @@ def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
     metrics.device_decodes = s.device_decodes
     metrics.host_busy_time = s.host_busy_time
     metrics.device_busy_time = s.device_busy_time
-    metrics.pipeline_overlap_time = s.pipeline_overlap_time
-    metrics.bubble_fraction = s.bubble_fraction
     metrics.lane_busy = dict(s.lane_busy_time)
     metrics.prefill_tokens_computed = s.prefill_tokens
     metrics.plan_busy_time = s.plan_busy_time

@@ -155,9 +155,6 @@ class DenseLM(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    def active_param_count(self) -> int:
-        return self.param_count()  # dense: every parameter is active
-
     def unembed_matrix(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 

@@ -152,3 +152,32 @@ def test_cuda_kernel_matches_plain(shape, lens, dtype, cuda):
     tol = 2e-3 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert not got[torch.as_tensor(lens, device=cuda) == 0].any()
+
+
+@pytest.mark.cuda
+def test_engine_tokens_through_kernel_equal_plain_version(cuda):
+    """ROADMAP K1's engine gate: the same engine (fp32 smoke config, tight
+    pools so rows offload and swap) emits the same greedy tokens on the card,
+    where device rows go through the kernel, as on the CPU, where they go
+    through the plain version."""
+    from repro_torch.config import EngineConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import NeoEngine
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    ecfg = EngineConfig(device_pool_pages=7, host_pool_pages=96, max_batch_tokens=64,
+                        policy="neo", pipeline=False, hw_profile="h100_sxm",
+                        ewma_alpha=0.0)
+    cpu = NeoEngine(cfg, ecfg, device="cpu")
+    gpu = NeoEngine(cfg, ecfg, device=cuda, params=cpu.model.state_dict())
+    rng = np.random.default_rng(7)
+    prompts = [list(map(int, rng.integers(1, 500, size=n))) for n in (24, 30, 18, 22)]
+    before = ops.paged_decode_attention.launches
+    outs = []
+    for eng in (cpu, gpu):
+        rids = [eng.submit(p, 6) for p in prompts]
+        done = eng.run_until_done(300)
+        outs.append([done[r] for r in rids])
+    assert outs[1] == outs[0]
+    assert gpu.stats.offloaded_decodes > 0 and gpu.stats.device_decodes > 0
+    assert ops.paged_decode_attention.launches > before

@@ -303,7 +303,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 log(f"[setup] {name}: {line.strip()}")
 
     # -- phase 2: kernel -----------------------------------------------------

@@ -4,8 +4,8 @@ On the CPU the wrapper runs the plain version, which must match the
 reference oracle ``paged_decode_ref`` over the reference sweep of
 ``tests/test_kernels.py`` (fp32 to 1e-5: the same algorithm with another
 summation order; bf16 to 2e-2) and the Pallas kernel in interpret mode.  The
-CUDA kernel itself runs only on the card: its test is marked ``cuda`` and
-skips here.
+CUDA kernel itself runs only on the card: its tests are in
+``test_torch_paged_decode_card.py``.
 """
 
 import numpy as np
@@ -32,13 +32,6 @@ def jax_ref():
     from repro.kernels.paged_decode.ops import paged_decode_attention
 
     return jax, paged_decode_attention
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
 
 
 def _inputs(seed, B, H, KV, hd, page, npages, lens=None):
@@ -76,18 +69,18 @@ def _edge_lens_cases():
     return cases
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name,shape,lens", _edge_lens_cases(),
                          ids=[c[0] for c in _edge_lens_cases()])
-def test_plain_matches_reference_oracle(name, shape, lens, dtype, jax_ref):
+def test_plain_matches_reference_oracle(name, shape, lens, jax_ref):
     arrs = _inputs(sum(map(ord, name)), *shape, lens=lens)
-    want = _reference(jax_ref, arrs, dtype)
-    got = ops.paged_decode_attention(*_port(arrs, dtype))
-    assert got.dtype == getattr(torch, dtype)
-    np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL[dtype], atol=TOL[dtype])
-    # lens == 0 rows are exactly zero
     zero = np.asarray(arrs[4]) == 0
-    assert not got.float().numpy()[zero].any()
+    for dtype in ("float32", "bfloat16"):
+        want = _reference(jax_ref, arrs, dtype)
+        got = ops.paged_decode_attention(*_port(arrs, dtype))
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL[dtype],
+                                   atol=TOL[dtype], err_msg=dtype)
+        assert not got.float().numpy()[zero].any()  # lens == 0 rows are zeros
 
 
 def test_plain_matches_pallas_interpret(jax_ref):
@@ -119,65 +112,3 @@ def test_wrapper_rejects_bad_inputs():
         ops.paged_decode_attention(q, kp.to("meta"), vp, bt, lens)
     with pytest.raises(ValueError):
         ops.paged_decode_attention(q, kp, vp, bt[:1], lens)
-
-
-@pytest.mark.parametrize("rows_x_kv,max_pages", [
-    (64, 50), (512, 128), (8, 129), (64, 4), (1, 1), (2048, 128), (24, 3), (1, 300)])
-def test_page_split_covers_every_page_once(rows_x_kv, max_pages):
-    n = ops.split_pages(rows_x_kv, max_pages, sm_count=132)
-    per = -(-max_pages // n)
-    assert 1 <= n <= max_pages
-    assert per * n >= max_pages > per * (n - 1)  # no empty trailing range
-    assert per >= min(ops.MIN_PAGES_PER_SPLIT, max_pages)
-    if rows_x_kv >= ops.BLOCKS_PER_SM * 132:
-        assert n == 1  # enough blocks already
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,lens", [
-    ((3, 16, 8, 128, 16, 8), [0, 17, 128]),       # split over pages
-    ((2, 14, 2, 112, 16, 4), [1, 64]),            # one range per row
-    ((4, 4, 1, 32, 8, 4), [8, 9, 32, 3]),
-    ((1, 16, 8, 128, 16, 130), [2070]),           # long row, many ranges
-])
-def test_cuda_kernel_matches_plain(shape, lens, dtype, cuda):
-    arrs = _inputs(5, *shape, lens=lens)
-    args = _port(arrs, dtype, device=cuda)
-    before = ops.paged_decode_attention.launches
-    got = ops.paged_decode_attention(*args)
-    torch.cuda.synchronize()
-    assert ops.paged_decode_attention.launches == before + 1
-    want = paged_decode_ref(*args)
-    tol = 2e-3 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    assert not got[torch.as_tensor(lens, device=cuda) == 0].any()
-
-
-@pytest.mark.cuda
-def test_engine_tokens_through_kernel_equal_plain_version(cuda):
-    """ROADMAP K1's engine gate: the same engine (fp32 smoke config, tight
-    pools so rows offload and swap) emits the same greedy tokens on the card,
-    where device rows go through the kernel, as on the CPU, where they go
-    through the plain version."""
-    from repro_torch.config import EngineConfig
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.core.engine import NeoEngine
-
-    cfg = get_smoke_config("qwen3-0.6b")
-    ecfg = EngineConfig(device_pool_pages=7, host_pool_pages=96, max_batch_tokens=64,
-                        policy="neo", pipeline=False, hw_profile="h100_sxm",
-                        ewma_alpha=0.0)
-    cpu = NeoEngine(cfg, ecfg, device="cpu")
-    gpu = NeoEngine(cfg, ecfg, device=cuda, params=cpu.model.state_dict())
-    rng = np.random.default_rng(7)
-    prompts = [list(map(int, rng.integers(1, 500, size=n))) for n in (24, 30, 18, 22)]
-    before = ops.paged_decode_attention.launches
-    outs = []
-    for eng in (cpu, gpu):
-        rids = [eng.submit(p, 6) for p in prompts]
-        done = eng.run_until_done(300)
-        outs.append([done[r] for r in rids])
-    assert outs[1] == outs[0]
-    assert gpu.stats.offloaded_decodes > 0 and gpu.stats.device_decodes > 0
-    assert ops.paged_decode_attention.launches > before

@@ -189,26 +189,3 @@ def test_admission_identical_to_reference():
         assert [r.state.value for r in side.s.waitq] == []
     assert plans[0] == plans[1]
 
-
-def test_config_copies_match_reference():
-    """The port's copies of the config registry, the engine config and the
-    hardware profiles describe the same models and machines as the
-    reference's (only the default hardware profile differs)."""
-    import dataclasses
-
-    from repro import configs as ref_configs
-    from repro.roofline import hw as ref_hw
-
-    from repro_torch import configs
-    from repro_torch.roofline import hw
-
-    assert configs.ARCH_NAMES == ref_configs.ARCH_NAMES
-    for name in configs.ARCH_NAMES:
-        for get, ref_get in ((configs.get_config, ref_configs.get_config),
-                             (configs.get_smoke_config, ref_configs.get_smoke_config)):
-            assert dataclasses.asdict(get(name)) == dataclasses.asdict(ref_get(name)), name
-    ours, theirs = dataclasses.asdict(EngineConfig()), dataclasses.asdict(RefEngineConfig())
-    assert ours.pop("hw_profile") == "h100_sxm" and theirs.pop("hw_profile") == "tpu_v5e"
-    assert ours == theirs
-    assert {k: dataclasses.asdict(v) for k, v in hw.HARDWARE.items()} == \
-        {k: dataclasses.asdict(v) for k, v in ref_hw.HARDWARE.items()}

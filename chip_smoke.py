@@ -5,9 +5,8 @@
 
 Phases, each of which fails the run by raising:
 
-1. setup   — versions, the card's name and power limit, build every CUDA
-             kernel from the sources in this checkout (one nvcc each, all
-             started together);
+1. setup   — versions, the card's name and power limit, build the CUDA
+             kernel from the sources in this checkout;
 2. kernel  — hold the paged decode kernel against its plain PyTorch version
              over a shape/length/dtype sweep; time kernel, plain version
              and a library yardstick (scaled_dot_product_attention on
@@ -16,7 +15,8 @@ Phases, each of which fails the run by raising:
              weights from a seeded torch.Generator) served by NeoEngine
              through ``launch.serve.run_trace`` with a device pool small
              enough that the neo policy must offload; the kernel's launch
-             counter is zeroed just before and read just after;
+             counters (attention kernel, merge kernel) are zeroed just
+             before and read just after;
 4. parity  — the same engine in fp32 on the same prompts, every emitted
              token checked against the dense oracle (plain-torch prefill
              over prompt + out[:i]) on the card.
@@ -203,7 +203,8 @@ def make_trace(n, vocab, seed=0):
 
 def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512):
     """Serve ``n`` requests through the port's main path; returns the
-    engine, the trace, the metrics, and (launches, decode calls)."""
+    engine, the trace, the metrics, the attention and merge kernels'
+    launches, and the decode calls."""
     from repro_torch.core.engine import NeoEngine
     from repro_torch.core.request import RequestState
     from repro_torch.kernels.paged_decode.ops import paged_decode_attention
@@ -220,8 +221,10 @@ def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512):
 
     engine.executor.decode = counted
     paged_decode_attention.launches = 0
+    paged_decode_attention.merge_launches = 0
     metrics = run_trace(engine, trace, vocab=cfg.vocab_size)
     launches = paged_decode_attention.launches
+    merges = paged_decode_attention.merge_launches
     engine.close()
     done = [r for r in engine.requests.values() if r.state == RequestState.FINISHED]
     if len(done) != n:
@@ -230,7 +233,7 @@ def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512):
     if not (s.offloaded_decodes > 0 and s.device_decodes > 0 and engine.pool.swap_bytes > 0):
         raise AssertionError(f"main path did not split: offloaded={s.offloaded_decodes} "
                              f"device={s.device_decodes} swap_bytes={engine.pool.swap_bytes}")
-    return engine, trace, metrics, launches, calls[0]
+    return engine, trace, metrics, launches, merges, calls[0]
 
 
 def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, chunk=8):
@@ -290,6 +293,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_decode.ops import SOURCE
 
     # -- phase 1: setup ----------------------------------------------------
     card = card_line()
@@ -298,23 +302,24 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"[setup] built {sorted(logs) or 'nothing (cached)'} in "
+    text = _build.build(SOURCE)
+    log(f"[setup] built {SOURCE.name if text else 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
-                log(f"[setup] {name}: {line.strip()}")
+    for line in text.splitlines():
+        if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+            log(f"[setup] {SOURCE.name}: {line.strip()}")
 
     # -- phase 2: kernel -----------------------------------------------------
     timed, worst = kernel_phase(torch)
 
     # -- phase 3: serve (the main path) --------------------------------------
     cfg = get_config("qwen3-0.6b")
-    engine, trace, m, launches, calls = serve_phase(cfg, "cuda")
+    engine, trace, m, launches, merges, calls = serve_phase(cfg, "cuda")
     if launches != cfg.num_layers * calls or calls == 0:
         raise AssertionError(f"kernel launches {launches} != {cfg.num_layers} x "
                              f"{calls} decode calls")
+    if not 0 < merges <= launches:  # the main path's rows are long enough to split
+        raise AssertionError(f"merge kernel launches {merges} not in (0, {launches}]")
     main_t = timed["main"]
     log(json.dumps({"kernels": [{
         "name": "paged_decode",
@@ -322,6 +327,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_decode/kernel.py:87",
         "launches": launches,
+        "merge_launches": merges,
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -340,7 +346,8 @@ def main() -> int:
         "makespan_s": m.makespan, "iterations": s.iterations,
         "offloaded_decodes": s.offloaded_decodes, "device_decodes": s.device_decodes,
         "swap_bytes": engine.pool.swap_bytes, "decode_calls": calls,
-        "kernel_launches": launches, "modes": s.mode_counts,
+        "kernel_launches": launches, "merge_kernel_launches": merges,
+        "modes": s.mode_counts,
         "host_attention_busy_s": s.host_busy_time, "plan_busy_s": s.plan_busy_time,
         "lane_busy_s": s.lane_busy_time, "card": card}}))
     del engine

@@ -10,10 +10,11 @@ cold prefill.  Per decode step and layer:
   :meth:`HostAttention.run_layer` appends the K/V to the host pool and
   attends there, and the result is copied back — the paper's
   TrQKV → CPU-attn → TrO;
-* one launch of the paged decode kernel covers all rows, with ``lens = 0``
+* one call of the paged decode kernel covers all rows, with ``lens = 0``
   for host rows (the kernel returns zeros there), and host rows take the
-  host output — so the kernel launches exactly ``num_layers`` times per
-  :meth:`decode` call;
+  host output — so the attention kernel launches exactly ``num_layers``
+  times per :meth:`decode` call, each followed by a launch of its merge
+  kernel when the rows' pages are split into ranges;
 * the output projection and FFN run on the device for all rows.
 
 Per-row compute is independent of the other rows, so a row's logits do not

@@ -1,13 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C entry point, compiled
-by ``nvcc`` for ``sm_90a`` into a shared library and loaded with ``ctypes``
+A kernel is one ``.cu`` file with a plain C entry point, compiled by
+``nvcc`` for ``sm_90a`` into a shared library and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes).  Libraries land
 in ``build/kernels/`` at the repository root, named by a hash of the sources
 and flags, so a changed source rebuilds and an unchanged one is reused.
-Nothing is built at import time: :func:`load` builds on first use, and
-:func:`build` compiles several kernels at once (one ``nvcc`` each, started
-together).
+Nothing is built at import time: :func:`load` builds on first use.
 """
 
 from __future__ import annotations
@@ -19,74 +17,53 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
 
-_KERNELS_DIR = Path(__file__).resolve().parent
-BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
-
-# kernel name -> its source, relative to this directory
-SOURCES: Dict[str, str] = {
-    "paged_decode": "paged_decode/csrc/paged_decode.cu",
-}
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.is_file():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
-                       "CUDA toolkit is installed")
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc") or (CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc"))
+    if not found or not os.path.isfile(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                           "CUDA toolkit is installed")
+    return found
 
 
-def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives for the current sources."""
-    src = _KERNELS_DIR / SOURCES[name]
+def library_path(source: Path) -> Path:
+    """Where the library built from ``source`` lives for the current sources
+    (the ``.cu``, ``.cuh`` and ``.h`` files beside it)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(src.parent.iterdir()):
+    for f in sorted(source.parent.iterdir()):
         if f.suffix in (".cu", ".cuh", ".h"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the named kernels (all by default) that are not built yet,
-    one ``nvcc`` process each, all started together.  Returns each new
-    build's compiler log (``-Xptxas -v``: registers, shared memory, spills);
-    raises with the log if one fails."""
-    names = list(SOURCES if names is None else names)
+def build(source: Path) -> str:
+    """Compile ``source`` unless its library is built already.  Returns the
+    compiler log (``-Xptxas -v``: registers, shared memory, spills), or ""
+    when nothing was built; raises with the log if nvcc fails."""
+    target = library_path(source)
+    if target.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
-    procs = {}
-    for name in names:
-        target = library_path(name)
-        if target.exists():
-            continue
-        nvcc = nvcc or _nvcc()
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_KERNELS_DIR / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target)
-    logs = {}
-    for name, (proc, tmp, target) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for kernel {name!r}:\n{log}")
-        os.replace(tmp, target)
-        logs[name] = log
-    return logs
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source.name}:\n{proc.stdout}")
+    os.replace(tmp, target)
+    return proc.stdout
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
-
+def load(source: Path) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if needed."""
+    build(source)
+    return ctypes.CDLL(str(library_path(source)))

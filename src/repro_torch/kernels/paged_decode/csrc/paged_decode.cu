@@ -16,12 +16,13 @@
 // qpk query heads that share the kv head are the block's first qpk warps,
 // so each K/V page crosses HBM once per group, not once per query head; the
 // block reads block_tables[b, p] itself (the TPU kernel's scalar prefetch)
-// and stages one page of K and V in shared memory, with 16-byte loads where
-// hd * sizeof(T) is a multiple of 16.  Pages past lens[b] are never read,
-// nor are the dead tokens of the last page.  (m, l, acc) stay in registers
-// in f32; scores are warp-shuffle reductions.  Lane l owns head dims l,
-// l+32, ..., so any hd <= 256 and any qpk <= 32 work without the TPU
-// wrapper's padding (hd = 112 and qpk = 7 included).
+// and stages one page of K and V in shared memory with 16-byte loads (so
+// hd * sizeof(T) must be a multiple of 16; the wrapper checks).  Pages past
+// lens[b] are never read, nor are the dead tokens of the last page.
+// (m, l, acc) stay in registers in f32; scores are warp-shuffle reductions.
+// Lane l owns head dims l, l+32, ..., so any such hd <= 256 and any
+// qpk <= 32 work without the TPU wrapper's padding (hd = 112 and qpk = 7
+// included).
 //
 // Split over pages: a decode step has few rows, and B * KV blocks alone
 // leave most of the 132 SMs idle while each block walks its pages one after
@@ -34,8 +35,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <stdint.h>
 
 namespace {
 
@@ -59,11 +58,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// CH: head dims per lane (hd <= 32 * CH); VEC: stage pages with 16-byte
-// loads.  Requires page <= 32 (lane t keeps token t's score) and
-// blockDim.x == 32 * max(qpk, 4).  part: [B, KV, n_split, qpk, hd + 2] f32
+// CH: head dims per lane (hd <= 32 * CH).  Requires hd * sizeof(T) % 16 == 0
+// and 16-byte aligned k/v pages (pages are staged with 16-byte loads),
+// page <= 32 (lane t keeps token t's score) and blockDim.x == 32 * max(qpk, 4).  part: [B, KV, n_split, qpk, hd + 2] f32
 // (acc, then l and m) when gridDim.z > 1, unused otherwise.
-template <typename T, int CH, bool VEC>
+template <typename T, int CH>
 __global__ void paged_decode_kernel(const T* __restrict__ q,
                                     const T* __restrict__ k_pages,
                                     const T* __restrict__ v_pages,
@@ -105,24 +104,14 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
     const int pid = block_tables[static_cast<size_t>(b) * max_pages + p];
     const int ntok = min(page, len - p * page);
     const size_t base = static_cast<size_t>(pid) * page * KV * hd;
-    if (VEC) {
-      constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
-      const int per_tok = hd / E;
-      for (int idx = threadIdx.x; idx < ntok * per_tok; idx += blockDim.x) {
-        const int t = idx / per_tok;
-        const int c = idx - t * per_tok;
-        const size_t g = base + (static_cast<size_t>(t) * KV + kvh) * hd + c * E;
-        reinterpret_cast<uint4*>(k_s)[idx] = *reinterpret_cast<const uint4*>(k_pages + g);
-        reinterpret_cast<uint4*>(v_s)[idx] = *reinterpret_cast<const uint4*>(v_pages + g);
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < ntok * hd; idx += blockDim.x) {
-        const int t = idx / hd;
-        const int d = idx - t * hd;
-        const size_t g = base + (static_cast<size_t>(t) * KV + kvh) * hd + d;
-        k_s[idx] = k_pages[g];
-        v_s[idx] = v_pages[g];
-      }
+    constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
+    const int per_tok = hd / E;
+    for (int idx = threadIdx.x; idx < ntok * per_tok; idx += blockDim.x) {
+      const int t = idx / per_tok;
+      const int c = idx - t * per_tok;
+      const size_t g = base + (static_cast<size_t>(t) * KV + kvh) * hd + c * E;
+      reinterpret_cast<uint4*>(k_s)[idx] = *reinterpret_cast<const uint4*>(k_pages + g);
+      reinterpret_cast<uint4*>(v_s)[idx] = *reinterpret_cast<const uint4*>(v_pages + g);
     }
     __syncthreads();
     if (active) {
@@ -209,20 +198,6 @@ __global__ void merge_partials_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename T, int CH>
-void launch_split(bool vec, dim3 grid, int threads, size_t smem, cudaStream_t stream,
-                  const T* q, const T* kp, const T* vp, const int* bt, const int* ln,
-                  T* op, float* part, int H, int KV, int hd, int page, int max_pages,
-                  int pages_per_split, float scale) {
-  if (vec) {
-    paged_decode_kernel<T, CH, true><<<grid, threads, smem, stream>>>(
-        q, kp, vp, bt, ln, op, part, H, KV, hd, page, max_pages, pages_per_split, scale);
-  } else {
-    paged_decode_kernel<T, CH, false><<<grid, threads, smem, stream>>>(
-        q, kp, vp, bt, ln, op, part, H, KV, hd, page, max_pages, pages_per_split, scale);
-  }
-}
-
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* block_tables, const void* lens, void* out,
@@ -233,9 +208,6 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const size_t smem = 2 * static_cast<size_t>(page) * hd * sizeof(T);
   const int pages_per_split = (max_pages + n_split - 1) / n_split;
   const dim3 grid(KV, B, n_split);
-  const bool vec = (hd * sizeof(T)) % 16 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(k_pages) |
-                     reinterpret_cast<uintptr_t>(v_pages)) % 16) == 0;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k_pages);
   const T* vp = static_cast<const T*>(v_pages);
@@ -243,14 +215,19 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const int* ln = static_cast<const int*>(lens);
   T* op = static_cast<T*>(out);
   float* pp = static_cast<float*>(part);
+  if ((hd * sizeof(T)) % 16 != 0) return cudaErrorInvalidValue;  // 16-byte staging
   if (hd <= 32) {
-    launch_split<T, 1>(vec, grid, threads, smem, stream, qp, kp, vp, bt, ln, op, pp, H, KV, hd, page, max_pages, pages_per_split, scale);
+    paged_decode_kernel<T, 1><<<grid, threads, smem, stream>>>(
+        qp, kp, vp, bt, ln, op, pp, H, KV, hd, page, max_pages, pages_per_split, scale);
   } else if (hd <= 64) {
-    launch_split<T, 2>(vec, grid, threads, smem, stream, qp, kp, vp, bt, ln, op, pp, H, KV, hd, page, max_pages, pages_per_split, scale);
+    paged_decode_kernel<T, 2><<<grid, threads, smem, stream>>>(
+        qp, kp, vp, bt, ln, op, pp, H, KV, hd, page, max_pages, pages_per_split, scale);
   } else if (hd <= 128) {
-    launch_split<T, 4>(vec, grid, threads, smem, stream, qp, kp, vp, bt, ln, op, pp, H, KV, hd, page, max_pages, pages_per_split, scale);
+    paged_decode_kernel<T, 4><<<grid, threads, smem, stream>>>(
+        qp, kp, vp, bt, ln, op, pp, H, KV, hd, page, max_pages, pages_per_split, scale);
   } else if (hd <= 256) {
-    launch_split<T, 8>(vec, grid, threads, smem, stream, qp, kp, vp, bt, ln, op, pp, H, KV, hd, page, max_pages, pages_per_split, scale);
+    paged_decode_kernel<T, 8><<<grid, threads, smem, stream>>>(
+        qp, kp, vp, bt, ln, op, pp, H, KV, hd, page, max_pages, pages_per_split, scale);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -263,7 +240,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  part: f32 scratch of
-// B * KV * n_split * (H / KV) * (hd + 2) floats when n_split > 1.  Returns
+// B * KV * n_split * (H / KV) * (hd + 2) floats when n_split > 1.  Launches
+// paged_decode_kernel, then merge_partials_kernel when n_split > 1.  Returns
 // the cudaError_t of the launches.
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* block_tables,

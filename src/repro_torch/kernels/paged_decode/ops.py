@@ -8,8 +8,14 @@ version in :mod:`.ref`; CUDA tensors go to the hand-written kernel
 launches on the current stream without synchronising.  There is no fallback
 from the kernel to the plain version: a CUDA input the kernel cannot take,
 a failed build or a refused launch raises.  Unlike the TPU wrapper, nothing
-is padded: the kernel takes any head_dim up to 256 and any group size up to
-32 as they are.
+is padded: the kernel takes as they are any group size up to 32 and any
+head_dim up to 256 whose row is a whole number of 16-byte loads (a multiple
+of 8 in bf16, of 4 in fp32), on 16-byte aligned K/V pages.
+
+``paged_decode_attention.launches`` counts launches of the attention kernel
+(one per call on a CUDA tensor); ``paged_decode_attention.merge_launches``
+counts launches of the merge kernel that follows it when the rows' pages
+are split into ranges (see :func:`split_pages`).
 """
 
 from __future__ import annotations
@@ -17,17 +23,21 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_decode.ref import paged_decode_ref
 
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode.cu"
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_PAGE = 32  # lane t of a warp keeps token t's score
 MAX_GROUP = 32  # one warp per query head of a group, 1024 threads at most
 MAX_HEAD_DIM = 256
 MAX_SMEM = 48 * 1024  # static launch limit without an opt-in attribute
+LOAD_BYTES = 16  # pages are staged in shared memory with 16-byte loads
 BLOCKS_PER_SM = 8  # page-range split target (see split_pages)
 MIN_PAGES_PER_SPLIT = 4
 
@@ -60,7 +70,7 @@ def _check(q, k_pages, v_pages, block_tables, lens) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    fn = _build.load("paged_decode").paged_decode
+    fn = _build.load(SOURCE).paged_decode
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -83,14 +93,28 @@ def split_pages(rows_x_kv: int, max_pages: int, sm_count: int) -> int:
     return -(-max_pages // per)
 
 
-def _launch(q, k_pages, v_pages, block_tables, lens) -> torch.Tensor:
-    B, H, hd = q.shape
+def check_kernel_limits(q, k_pages, v_pages) -> None:
+    """Raise ValueError for inputs the kernel cannot take as they are."""
+    _, H, hd = q.shape
     _, page, KV, _ = k_pages.shape
-    smem = 2 * page * hd * q.element_size()
+    el = q.element_size()
+    smem = 2 * page * hd * el
     if page > MAX_PAGE or H // KV > MAX_GROUP or hd > MAX_HEAD_DIM or smem > MAX_SMEM:
         raise ValueError(f"kernel limits: page {page} <= {MAX_PAGE}, group {H // KV} <= "
                          f"{MAX_GROUP}, head_dim {hd} <= {MAX_HEAD_DIM}, "
                          f"shared memory {smem} <= {MAX_SMEM}")
+    if hd * el % LOAD_BYTES:
+        raise ValueError(f"head_dim {hd} x {el} bytes is not a multiple of "
+                         f"{LOAD_BYTES} bytes (the kernel stages pages with "
+                         f"{LOAD_BYTES}-byte loads)")
+    if (k_pages.data_ptr() | v_pages.data_ptr()) % LOAD_BYTES:
+        raise ValueError(f"k/v pages must start on a {LOAD_BYTES}-byte boundary")
+
+
+def _launch(q, k_pages, v_pages, block_tables, lens) -> torch.Tensor:
+    check_kernel_limits(q, k_pages, v_pages)
+    B, H, hd = q.shape
+    _, page, KV, _ = k_pages.shape
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -110,6 +134,7 @@ def _launch(q, k_pages, v_pages, block_tables, lens) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: cudaError_t {err}")
     paged_decode_attention.launches += 1
+    paged_decode_attention.merge_launches += int(n_split > 1)
     return out
 
 
@@ -121,7 +146,7 @@ def paged_decode_attention(
     lens: torch.Tensor,  # [B] int32 — tokens to attend over; 0 gives zeros
 ) -> torch.Tensor:
     """Attention of one query token per row over its pages; output in q's
-    dtype.  ``paged_decode_attention.launches`` counts kernel launches."""
+    dtype.  See the module docstring for the launch counters."""
     _check(q, k_pages, v_pages, block_tables, lens)
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, block_tables, lens)
@@ -131,3 +156,4 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.merge_launches = 0

@@ -9,8 +9,11 @@ arrival time passes, one engine step per loop turn.
 
 Flags are the JAX launcher's.  Only the serial engine is ported, so
 ``--no-pipeline`` is required; the open-loop runner (``--arrivals``,
-``--sustained``), the prefix cache, tensor parallelism, speculative decoding
-and tracing raise ``NotImplementedError`` naming their ROADMAP item.
+``--sustained``, ``--slo-ttft``, ``--slo-tpot``), the pipelined engine's
+knobs (``--no-microbatch``, ``--max-host-lanes``, ``--no-planahead``), the
+prefix cache, tensor parallelism, speculative decoding (``--spec-k``
+included) and tracing raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from repro_torch.core.engine import NeoEngine
 from repro_torch.core.request import RequestState
 from repro_torch.serving.metrics import RequestRecord, ServeMetrics
 from repro_torch.serving.traces import get_trace, save_trace
+
+SLO_TTFT, SLO_TPOT = 10.0, 1.0  # the JAX launcher's defaults (read by --sustained)
 
 
 def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
@@ -104,13 +109,19 @@ def _unported_flags(args) -> str:
     if not args.no_pipeline:
         return ("pipelined execution is not ported yet (ROADMAP P7); "
                 "pass --no-pipeline")
-    if args.arrivals != "closed" or args.sustained:
+    if (args.no_microbatch or args.no_planahead
+            or args.max_host_lanes != EngineConfig.max_host_lanes):
+        return ("micro-batching, host lanes and plan-ahead belong to the pipelined "
+                "engine, not ported yet (ROADMAP P7)")
+    if (args.arrivals != "closed" or args.sustained
+            or (args.slo_ttft, args.slo_tpot) != (SLO_TTFT, SLO_TPOT)):
         return "open-loop serving (run_online, run_sustained) is not ported yet (ROADMAP P6/P7)"
     if args.prefix_cache or args.require_hits or args.host_serving:
         return "the prefix cache is not ported yet (ROADMAP P9)"
     if args.tp != 1:
         return "tensor-parallel serving is not ported yet (ROADMAP P13)"
-    if args.spec_decode or args.draft_model or args.require_accepts:
+    if (args.spec_decode or args.draft_model or args.require_accepts
+            or args.spec_k != EngineConfig.spec_k):
         return "speculative decoding is not ported yet (ROADMAP P10)"
     if args.trace_out or args.counters_out or args.require_reconcile:
         return "engine tracing is not ported yet (ROADMAP P8)"
@@ -142,8 +153,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arrivals", default="closed")
     ap.add_argument("--no-planahead", action="store_true")
     ap.add_argument("--max-waiting", type=int, default=0)
-    ap.add_argument("--slo-ttft", type=float, default=10.0)
-    ap.add_argument("--slo-tpot", type=float, default=1.0)
+    ap.add_argument("--slo-ttft", type=float, default=SLO_TTFT)
+    ap.add_argument("--slo-tpot", type=float, default=SLO_TPOT)
     ap.add_argument("--sustained", action="store_true")
     ap.add_argument("--save-trace", default="",
                     help="write the (clamped) trace as JSONL for replay")
@@ -168,9 +179,6 @@ def main(argv=None) -> int:
         max_batch_tokens=args.max_batch_tokens,
         policy=args.policy,
         pipeline=False,
-        microbatch=not args.no_microbatch,
-        max_host_lanes=args.max_host_lanes,
-        planahead=not args.no_planahead,
         max_waiting=args.max_waiting,
         seed=args.seed,
     )

@@ -112,3 +112,27 @@ def test_wrapper_rejects_bad_inputs():
         ops.paged_decode_attention(q, kp.to("meta"), vp, bt, lens)
     with pytest.raises(ValueError):
         ops.paged_decode_attention(q, kp, vp, bt[:1], lens)
+
+
+@pytest.mark.parametrize("dtype,hd,offset,ok", [
+    ("bfloat16", 128, 0, True),
+    ("bfloat16", 112, 0, True),    # 224-byte rows: whole 16-byte loads
+    ("float32", 36, 0, True),      # 144-byte rows
+    ("bfloat16", 36, 0, False),    # 72-byte rows
+    ("float32", 30, 0, False),     # 120-byte rows
+    ("bfloat16", 128, 4, False),   # pages start 8 bytes off a 16-byte boundary
+    ("float32", 288, 0, False),    # head_dim past 256
+])
+def test_kernel_limits(dtype, hd, offset, ok):
+    """What the CUDA kernel takes as it is: rows of whole 16-byte loads on
+    16-byte aligned pages; anything else is refused before a launch."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros(2, 4, hd, dtype=dt)
+    flat = torch.zeros(offset + 3 * 8 * 2 * hd, dtype=dt)
+    kp = flat[offset:].view(3, 8, 2, hd)
+    assert kp.data_ptr() % 16 == (offset * kp.element_size()) % 16
+    if ok:
+        ops.check_kernel_limits(q, kp, kp)
+    else:
+        with pytest.raises(ValueError):
+            ops.check_kernel_limits(q, kp, kp)

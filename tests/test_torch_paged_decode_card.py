@@ -61,9 +61,12 @@ def test_cuda_kernel_matches_plain(shape, lens, cuda):
     for dtype, tol in (("float32", 2e-3), ("bfloat16", 2e-2)):
         args = _port(arrs, dtype, device=cuda)
         before = ops.paged_decode_attention.launches
+        merges = ops.paged_decode_attention.merge_launches
         got = ops.paged_decode_attention(*args)
         torch.cuda.synchronize()
         assert ops.paged_decode_attention.launches == before + 1
+        split = ops.split_pages(shape[0] * shape[2], shape[5], ops._sm_count(cuda.index or 0))
+        assert ops.paged_decode_attention.merge_launches == merges + (split > 1)
         want = paged_decode_ref(*args)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         assert not got[torch.as_tensor(lens, device=cuda) == 0].any()

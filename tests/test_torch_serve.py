@@ -66,6 +66,12 @@ def test_cli_runs_on_cpu_when_asked(capsys):
     (["--no-pipeline", "--tp", "2"], "P13"),
     (["--no-pipeline", "--spec-decode"], "P10"),
     (["--no-pipeline", "--trace-out", "t.json"], "P8"),
+    (["--no-pipeline", "--no-microbatch"], "P7"),
+    (["--no-pipeline", "--max-host-lanes", "2"], "P7"),
+    (["--no-pipeline", "--no-planahead"], "P7"),
+    (["--no-pipeline", "--slo-ttft", "5"], "P6/P7"),
+    (["--no-pipeline", "--slo-tpot", "0.5"], "P6/P7"),
+    (["--no-pipeline", "--spec-k", "2"], "P10"),
 ])
 def test_cli_refuses_unported_options(flags, item):
     with pytest.raises(NotImplementedError, match=item):

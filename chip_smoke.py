@@ -5,32 +5,42 @@
 
 Phases, each of which fails the run by raising:
 
-1. setup   — versions, the card's name and power limit, build the CUDA
-             kernel from the sources in this checkout;
-2. kernel  — hold the paged decode kernel against its plain PyTorch version
-             over a shape/length/dtype sweep; time kernel, plain version
-             and a library yardstick (scaled_dot_product_attention on
-             pre-gathered K/V, which the port never calls);
-3. serve   — the port's main path: full-width qwen3-0.6b in bf16 (random
-             weights from a seeded torch.Generator) served by NeoEngine
-             through ``launch.serve.run_trace`` with a device pool small
-             enough that the neo policy must offload; the kernel's launch
-             counters (attention kernel, merge kernel) are zeroed just
-             before and read just after;
-4. parity  — the same engine in fp32 on the same prompts, every emitted
-             token checked against the dense oracle (plain-torch prefill
-             over prompt + out[:i]) on the card.
+1. setup   — versions, the card's name and power limit, build the three CUDA
+             kernels from the sources in this checkout (one nvcc per source,
+             all started together) and print each kernel's registers, shared
+             memory and spills;
+2. kernel  — hold each kernel against its plain PyTorch version over a
+             shape/length/dtype sweep: paged decode attention (with a library
+             yardstick, scaled_dot_product_attention on pre-gathered K/V,
+             which the port never calls), the RWKV6 chunked scan and the
+             Mamba2 SSD chunked scan (ragged T, P != N, strong decay and the
+             full-width shapes included; no single PyTorch call computes
+             either recurrence, so they have no library yardstick); time
+             kernel and plain version at the main path's shapes;
+3. serve   — the port's paths, each driven through ``launch.serve.run_trace``
+             with every kernel's launch counter zeroed just before and read
+             just after: full-width qwen3-0.6b (bf16) through the paged
+             engine with a device pool small enough that the neo policy must
+             offload, then full-width rwkv6-7b and zamba2-7b (bf16) through
+             the contiguous engine, whose every prefill runs the scan kernel
+             once per layer (random weights from a seeded torch.Generator);
+4. parity  — each model again in fp32 on the same prompts, every emitted
+             token checked against an oracle on the card: the dense plain
+             prefill over prompt + out[:i] for qwen3-0.6b; the model's own
+             prefill with the plain scan, then teacher-forced decode steps,
+             for rwkv6-7b and zamba2-7b.
 
 Output: the card line (nvidia-smi name, power limit), per-case kernel
-lines, one ``{"kernels": [...]}`` line, the serve summary, the parity count
-and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-rest of the repository beside it, the script exits non-zero and prints no
-result.  It imports nothing of the JAX package.
+lines, the serve summaries, one ``{"kernels": [...]}`` line, the parity
+counts and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
+without the rest of the repository beside it, the script exits non-zero and
+prints no result.  It imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +53,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}  # tests/test_kernels.py tolerances
 NEAR_TIE = 1e-3  # parity: a token within this of the oracle's max logit is a tie
+NO_LIBRARY = ("no single PyTorch call computes this recurrence; the port's "
+              "plain version is a loop of chunk steps")
 
 
 def log(msg: str) -> None:
@@ -177,9 +189,162 @@ def kernel_phase(torch):
     return timed, worst
 
 
+def _close(torch, name, dt_name, case, pairs):
+    """Hold (label, kernel output, plain output) pairs to TOL; returns the
+    largest absolute error."""
+    tol = TOL[dt_name]
+    worst = 0.0
+    for label, got, want in pairs:
+        err = (got.float() - want.float()).abs()
+        ok = (bool(torch.isfinite(got.float()).all())
+              and bool((err <= tol + tol * want.float().abs()).all()))
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        if not ok:
+            raise AssertionError(f"{name} kernel disagrees with its plain version on "
+                                 f"{label} ({dt_name}, case {case}): max_abs_err "
+                                 f"{float(err.max()):.3e}")
+    return worst
+
+
+def rwkv6_inputs(torch, B, T, H, N, dtype, seed, strong=False):
+    """r/k/v ~ N(0, 1); decay w = exp(-exp(z)) with z ~ N(0, 1), or with
+    log w around -5 per step (``strong``), which drives the pair decays into
+    their +-60 clip; u ~ N(0, 1); state 0.1 N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn(B, T, H, N, generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    z = torch.randn(B, T, H, N, generator=g, device="cuda")
+    if strong:
+        z = math.log(5.0) + 0.1 * z
+    w = torch.exp(-torch.exp(z))
+    u = torch.randn(H, N, generator=g, device="cuda")
+    s0 = 0.1 * torch.randn(B, H, N, N, generator=g, device="cuda")
+    return r, k, v, w, u, s0
+
+
+def mamba2_inputs(torch, B, T, H, P, N, dtype, seed, strong=False):
+    """x, B, C ~ N(0, 1); dt ~ U(0.001, 0.1) and A ~ -U(0.5, 2) (the
+    reference sweep's), or dt ~ U(1, 3) and A ~ -U(1, 3) (``strong``: log
+    decay around -4 per step); D ~ N(0, 1); state 0.1 N(0, 1) as [B, H, N, P]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, T, H, P, generator=g, device="cuda").to(dtype)
+    lo, hi = (1.0, 3.0) if strong else (0.001, 0.1)
+    dt = lo + (hi - lo) * torch.rand(B, T, H, generator=g, device="cuda")
+    alo, ahi = (1.0, 3.0) if strong else (0.5, 2.0)
+    A = -(alo + (ahi - alo) * torch.rand(H, generator=g, device="cuda"))
+    Bm = torch.randn(B, T, N, generator=g, device="cuda").to(dtype)
+    Cm = torch.randn(B, T, N, generator=g, device="cuda").to(dtype)
+    D = torch.randn(H, generator=g, device="cuda")
+    s0 = 0.1 * torch.randn(B, H, N, P, generator=g, device="cuda")
+    return x, dt, A, Bm, Cm, D, s0
+
+
+def scan_bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rwkv6_bound(args):
+    """Each input and output byte once; 4 N^2 FLOPs per token per head (the
+    recurrence's own count: y = r.(S + u k v^T) and S <- w S + k v^T), f32."""
+    r, k, v, w, u, s0 = args
+    B, T, H, N = r.shape
+    nbytes = sum(t.numel() * t.element_size() for t in args) + r.numel() * r.element_size() \
+        + s0.numel() * 4
+    return scan_bound(nbytes, 4 * N * N * B * T * H)
+
+
+def mamba2_bound(args):
+    """Each input and output byte once; 5 N P FLOPs per token per head (the
+    recurrence's own count: S <- a S + B (dt x), y = C.S), f32."""
+    x, dt, A, Bm, Cm, D, s0 = args
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in args) + x.numel() * x.element_size() \
+        + s0.numel() * 4
+    return scan_bound(nbytes, 5 * N * P * B * T * H)
+
+
+def scan_phase(torch, name, kern, plain, make, cases, full, bound):
+    """Sweep ``cases`` (dicts of ``make``'s shape keywords) in f32 and bf16,
+    then time kernel and plain version at the ``full`` shape in bf16."""
+    worst = {}
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for i, c in enumerate(cases):
+            args = make(torch, dtype=dtype, seed=100 + i, **c)
+            got = kern(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            err = _close(torch, name, dt_name, c, [("y", got[0], want[0]), ("state", got[1], want[1])])
+            worst[dt_name] = max(worst.get(dt_name, 0.0), err)
+            log(f"[kernel] {name} {dt_name} {c} max_abs_err={err:.3e} tol={TOL[dt_name]} ok")
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    args = make(torch, dtype=torch.bfloat16, seed=9, **full)
+    got, want = kern(*args), plain(*args)
+    err = max(float((got[0].float() - want[0].float()).abs().max()),
+              float((got[1] - want[1]).abs().max()))
+    t_k = time_ms(torch, lambda: kern(*args), flush)
+    t_p = time_ms(torch, lambda: plain(*args), flush)
+    b_ms, b_by = bound(args)
+    log(f"[kernel] timing {name}: {full} bf16 kernel={t_k:.4f} ms plain={t_p:.4f} ms "
+        f"bound={b_ms:.4f} ms ({b_by}) library=none max_abs_err={err:.3e}")
+    del flush
+    return dict(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, max_abs_err_sweep=worst, shape=full), worst
+
+
+def rwkv6_kernel_phase(torch):
+    from repro_torch.kernels.rwkv6_scan.ops import CHUNK, rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked
+
+    cases = [dict(B=1, T=32, H=2, N=16), dict(B=2, T=64, H=4, N=32),  # test_kernels.py:100
+             dict(B=1, T=100, H=2, N=16),  # ragged T
+             dict(B=2, T=40, H=3, N=64, strong=True),  # strong decay, ragged
+             dict(B=1, T=512, H=64, N=64), dict(B=1, T=768, H=64, N=64)]  # full width
+    return scan_phase(torch, "rwkv6_scan", rwkv6_scan,
+                      lambda *a: rwkv6_chunked(*a, chunk=CHUNK), rwkv6_inputs, cases,
+                      dict(B=1, T=512, H=64, N=64), rwkv6_bound)
+
+
+def mamba2_kernel_phase(torch):
+    from repro_torch.kernels.mamba2_ssd.ops import CHUNK, mamba2_ssd
+    from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked
+
+    cases = [dict(B=1, T=32, H=2, P=16, N=16), dict(B=2, T=64, H=2, P=32, N=32),  # :137
+             dict(B=1, T=100, H=3, P=32, N=16),  # ragged T, P != N (the smoke shape)
+             dict(B=2, T=130, H=4, P=24, N=40, strong=True),  # strong decay, P != N
+             dict(B=1, T=512, H=112, P=64, N=64), dict(B=1, T=768, H=112, P=64, N=64)]
+    return scan_phase(torch, "mamba2_ssd", mamba2_ssd,
+                      lambda *a: mamba2_ssd_chunked(*a, chunk=CHUNK), mamba2_inputs, cases,
+                      dict(B=1, T=512, H=112, P=64, N=64), mamba2_bound)
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: serve the main path, then parity against the oracle
 # ---------------------------------------------------------------------------
+
+
+def counters():
+    """The launch counters of every kernel, by name."""
+    from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd
+    from repro_torch.kernels.paged_decode.ops import paged_decode_attention
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+
+    return {"paged_decode": paged_decode_attention.launches,
+            "paged_decode_merge": paged_decode_attention.merge_launches,
+            "rwkv6_scan": rwkv6_scan.launches, "mamba2_ssd": mamba2_ssd.launches}
+
+
+def zero_counters() -> None:
+    from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd
+    from repro_torch.kernels.paged_decode.ops import paged_decode_attention
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+
+    paged_decode_attention.launches = 0
+    paged_decode_attention.merge_launches = 0
+    rwkv6_scan.launches = 0
+    mamba2_ssd.launches = 0
 
 
 def engine_config(device_pages, host_pages):
@@ -207,7 +372,6 @@ def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512):
     launches, and the decode calls."""
     from repro_torch.core.engine import NeoEngine
     from repro_torch.core.request import RequestState
-    from repro_torch.kernels.paged_decode.ops import paged_decode_attention
     from repro_torch.launch.serve import run_trace
 
     engine = NeoEngine(cfg, engine_config(device_pages, host_pages), device=device)
@@ -220,12 +384,13 @@ def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512):
         return decode(*a, **k)
 
     engine.executor.decode = counted
-    paged_decode_attention.launches = 0
-    paged_decode_attention.merge_launches = 0
+    zero_counters()
     metrics = run_trace(engine, trace, vocab=cfg.vocab_size)
-    launches = paged_decode_attention.launches
-    merges = paged_decode_attention.merge_launches
+    launched = counters()
     engine.close()
+    launches, merges = launched["paged_decode"], launched["paged_decode_merge"]
+    if launched["rwkv6_scan"] or launched["mamba2_ssd"]:
+        raise AssertionError(f"the paged path launched a scan kernel: {launched}")
     done = [r for r in engine.requests.values() if r.state == RequestState.FINISHED]
     if len(done) != n:
         raise AssertionError(f"only {len(done)}/{n} requests finished")
@@ -282,6 +447,132 @@ def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, 
                 device_decodes=engine.stats.device_decodes)
 
 
+# ---------------------------------------------------------------------------
+# the contiguous paths: rwkv6-7b and zamba2-7b
+# ---------------------------------------------------------------------------
+
+SSM_KERNEL = {"ssm": "rwkv6_scan", "hybrid": "mamba2_ssd"}
+SSM_SLOTS, SSM_CAPACITY = 8, 1024  # 8 slots x 1024 tokens: zamba2's KV ~1.6 GB
+
+
+def ssm_engine_config():
+    from repro_torch.config import EngineConfig
+
+    return EngineConfig(max_requests=SSM_SLOTS, max_batch_tokens=SSM_CAPACITY,
+                        policy="neo", pipeline=False, hw_profile="h100_sxm", seed=0)
+
+
+def ssm_serve_phase(torch, cfg, device, *, n=8):
+    """Serve ``n`` requests of ``cfg`` (ssm or hybrid) through the
+    contiguous engine with every launch counter zeroed just before and read
+    just after; the path's scan kernel must have launched once per layer per
+    prefill and no other kernel at all.  Returns (summary, trace)."""
+    from repro_torch.core.engine import NeoEngine
+    from repro_torch.core.request import RequestState
+    from repro_torch.launch.serve import run_trace
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = NeoEngine(cfg, ssm_engine_config(), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if engine.paged:
+        raise AssertionError(f"{cfg.name} took the paged path")
+    trace = make_trace(n, cfg.vocab_size)
+    calls = [0]
+    prefill = engine.executor.prefill
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return prefill(*a, **k)
+
+    engine.executor.prefill = counted
+    zero_counters()
+    m = run_trace(engine, trace, vocab=cfg.vocab_size)
+    launched = counters()
+    engine.close()
+    done = [r for r in engine.requests.values() if r.state == RequestState.FINISHED]
+    if len(done) != n:
+        raise AssertionError(f"{cfg.name}: only {len(done)}/{n} requests finished")
+    name = SSM_KERNEL[cfg.family]
+    want = {k: 0 for k in launched}
+    want[name] = cfg.num_layers * calls[0]
+    if launched != want or calls[0] != n:
+        raise AssertionError(f"{cfg.name}: launches {launched} != {want} "
+                             f"({cfg.num_layers} x {calls[0]} prefills of {n} requests)")
+    s = engine.stats
+    if cfg.family == "ssm" and (engine.scheduler.policy != "gpu_only"
+                                or set(s.mode_counts) != {"gpu_only"}):
+        raise AssertionError(f"{cfg.name}: scheduler ran {engine.scheduler.policy} "
+                             f"{s.mode_counts}, the reference forces gpu_only")
+    summary = {
+        "model": cfg.name, "dtype": cfg.activation_dtype, "layers": cfg.num_layers,
+        "params": engine.model.param_count(), "slots": engine.executor.slots,
+        "capacity": engine.executor.capacity, "requests": len(m.finished),
+        "prompt_tokens": sum(t.prompt_len for t in trace),
+        "output_tok_s": m.throughput, "total_tok_s": m.token_throughput,
+        "ttft_s": m.ttft(), "tpot_s": m.tpot(), "makespan_s": m.makespan,
+        "iterations": s.iterations, "prefills": calls[0], "decode_rows": s.device_decodes,
+        "lane_busy_s": dict(s.lane_busy_time), "plan_busy_s": s.plan_busy_time,
+        "modes": s.mode_counts, "policy": engine.scheduler.policy,
+        "kernel_launches": launched, "init_s": init_s,
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    del engine
+    torch.cuda.empty_cache()
+    return summary, trace
+
+
+def ssm_parity_phase(torch, cfg, device, trace):
+    """The same requests in fp32 (TF32 off); every emitted token must be the
+    oracle's argmax or within NEAR_TIE of its max logit.  The oracle is the
+    engine's own model: a prefill of the prompt with the plain scan, then
+    teacher-forced decode steps over the emitted tokens, one request at a
+    time."""
+    from repro_torch.core.engine import NeoEngine
+
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    engine = NeoEngine(cfg32, ssm_engine_config(), device=device)
+    rids = [engine.submit(t.prompt, t.output_len) for t in trace]
+    outs = engine.run_until_done(10_000)
+    engine.close()
+    model = engine.model
+    exact = ties = total = 0
+    worst_gap = 0.0
+    for rid, t in zip(rids, trace):
+        out = outs[rid]
+        if len(out) != t.output_len:
+            raise AssertionError(f"{cfg.name} parity engine: rid {rid} emitted {len(out)} tokens")
+        logits, cache = model.prefill(torch.tensor([t.prompt]), capacity=SSM_CAPACITY,
+                                      impl="plain")
+        for i, got in enumerate(out):
+            want = int(logits[0].argmax())
+            gap = float(logits[0, want] - logits[0, got])
+            total += 1
+            if got == want:
+                exact += 1
+            elif gap <= NEAR_TIE:
+                ties += 1
+                worst_gap = max(worst_gap, gap)
+            else:
+                raise AssertionError(f"{cfg.name} parity: rid {rid} token {i}: engine {got}, "
+                                     f"oracle {want}, logit gap {gap:.3e} > {NEAR_TIE}")
+            if i + 1 < len(out):
+                logits, cache = model.decode(torch.tensor([got]), cache)
+    del engine, model, cache
+    torch.cuda.empty_cache()
+    return dict(model=cfg.name, tokens=total, exact=exact, near_ties=ties,
+                worst_tie_gap=worst_gap)
+
+
+def scan_entry(name, source, replaces, launches, t, shape):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "max_abs_err_sweep": t["max_abs_err_sweep"], "ms": t["ms"], "kernel_ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "library_note": NO_LIBRARY, "shape": shape}
+
+
 def main() -> int:
     import torch
 
@@ -289,11 +580,14 @@ def main() -> int:
         print("[chip_smoke] FAIL: CUDA is not available; this script needs one GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 parity: full float32 GEMMs
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.paged_decode.ops import SOURCE
+    from repro_torch.kernels.mamba2_ssd.ops import SOURCE as SSD_SOURCE
+    from repro_torch.kernels.paged_decode.ops import SOURCE as PAGED_SOURCE
+    from repro_torch.kernels.rwkv6_scan.ops import SOURCE as RWKV6_SOURCE
 
     # -- phase 1: setup ----------------------------------------------------
     card = card_line()
@@ -302,17 +596,26 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    text = _build.build(SOURCE)
-    log(f"[setup] built {SOURCE.name if text else 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in text.splitlines():
-        if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
-            log(f"[setup] {SOURCE.name}: {line.strip()}")
+    logs = _build.build_all([PAGED_SOURCE, RWKV6_SOURCE, SSD_SOURCE])
+    built = [src.name for src, text in logs.items() if text]
+    log(f"[setup] built {', '.join(built) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc per source, concurrently)")
+    for src, text in logs.items():
+        for line in text.splitlines():
+            if ("Compiling entry function" in line or "registers" in line
+                    or ("spill" in line and " 0 bytes spill stores" not in line)):
+                log(f"[setup] {src.name}: {line.strip()}")
+    from repro_torch.kernels.mamba2_ssd.ops import smem_bytes
 
-    # -- phase 2: kernel -----------------------------------------------------
+    log(f"[setup] {SSD_SOURCE.name}: dynamic shared memory per block "
+        f"{smem_bytes(64)} bytes at N=64 (opted in above the 48 KiB static limit)")
+
+    # -- phase 2: kernels ----------------------------------------------------
     timed, worst = kernel_phase(torch)
+    rwkv6_t, _ = rwkv6_kernel_phase(torch)
+    ssd_t, _ = mamba2_kernel_phase(torch)
 
-    # -- phase 3: serve (the main path) --------------------------------------
+    # -- phase 3: serve each path --------------------------------------------
     cfg = get_config("qwen3-0.6b")
     engine, trace, m, launches, merges, calls = serve_phase(cfg, "cuda")
     if launches != cfg.num_layers * calls or calls == 0:
@@ -320,6 +623,26 @@ def main() -> int:
                              f"{calls} decode calls")
     if not 0 < merges <= launches:  # the main path's rows are long enough to split
         raise AssertionError(f"merge kernel launches {merges} not in (0, {launches}]")
+    s = engine.stats
+    log(json.dumps({"serve": {
+        "model": cfg.name, "dtype": cfg.activation_dtype, "layers": cfg.num_layers,
+        "requests": len(m.finished), "output_tok_s": m.throughput,
+        "total_tok_s": m.token_throughput, "ttft_s": m.ttft(), "tpot_s": m.tpot(),
+        "makespan_s": m.makespan, "iterations": s.iterations,
+        "offloaded_decodes": s.offloaded_decodes, "device_decodes": s.device_decodes,
+        "swap_bytes": engine.pool.swap_bytes, "decode_calls": calls,
+        "kernel_launches": launches, "merge_kernel_launches": merges,
+        "modes": s.mode_counts,
+        "host_attention_busy_s": s.host_busy_time, "plan_busy_s": s.plan_busy_time,
+        "lane_busy_s": s.lane_busy_time, "card": card}}))
+    del engine
+    torch.cuda.empty_cache()
+    ssm = {}
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        summary, ssm_trace = ssm_serve_phase(torch, get_config(arch), "cuda")
+        ssm[arch] = (summary, ssm_trace)
+        log(json.dumps({"serve": {**summary, "card": card}}))
+
     main_t = timed["main"]
     log(json.dumps({"kernels": [{
         "name": "paged_decode",
@@ -337,25 +660,22 @@ def main() -> int:
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
         "shape": "B=8 H=16 KV=8 hd=128 page=16 bf16 sum(lens)=%d" % main_t["sum_lens"],
-    }]}))
-    s = engine.stats
-    log(json.dumps({"serve": {
-        "model": cfg.name, "dtype": cfg.activation_dtype, "layers": cfg.num_layers,
-        "requests": len(m.finished), "output_tok_s": m.throughput,
-        "total_tok_s": m.token_throughput, "ttft_s": m.ttft(), "tpot_s": m.tpot(),
-        "makespan_s": m.makespan, "iterations": s.iterations,
-        "offloaded_decodes": s.offloaded_decodes, "device_decodes": s.device_decodes,
-        "swap_bytes": engine.pool.swap_bytes, "decode_calls": calls,
-        "kernel_launches": launches, "merge_kernel_launches": merges,
-        "modes": s.mode_counts,
-        "host_attention_busy_s": s.host_busy_time, "plan_busy_s": s.plan_busy_time,
-        "lane_busy_s": s.lane_busy_time, "card": card}}))
-    del engine
-    torch.cuda.empty_cache()
+    }, scan_entry("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+                  "src/repro/kernels/rwkv6_scan/kernel.py:91",
+                  ssm["rwkv6-7b"][0]["kernel_launches"]["rwkv6_scan"], rwkv6_t,
+                  "B=1 T=512 H=64 N=64 bf16 r/k/v, f32 w/u/state"),
+        scan_entry("mamba2_ssd", "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
+                   "src/repro/kernels/mamba2_ssd/kernel.py:86",
+                   ssm["zamba2-7b"][0]["kernel_launches"]["mamba2_ssd"], ssd_t,
+                   "B=1 T=512 H=112 P=64 N=64 bf16 x/B/C, f32 dt/A/D/state")]}))
 
     # -- phase 4: parity on the card -----------------------------------------
     par = parity_phase(torch, cfg, "cuda", trace)
     log(json.dumps({"parity": par}))
+    for arch, (_, ssm_trace) in ssm.items():
+        log(json.dumps({"parity": ssm_parity_phase(torch, get_config(arch), "cuda",
+                                                   ssm_trace)}))
+    log(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """NeoEngine — the online serving engine (continuous batching + NEO offload),
 serial path.
 
-One :meth:`NeoEngine.step` is one inference iteration:
+The engine is paged or contiguous as the reference decides
+(``cfg.family in PAGED_FAMILIES and cfg.supports_offload``).  On the paged
+path (dense family) one :meth:`NeoEngine.step` is one inference iteration:
 
 * **plan** — the load-aware scheduler builds the two-batch asymmetric plan
   (which decode rows attend on the device, which on the host; swaps;
@@ -13,6 +15,11 @@ One :meth:`NeoEngine.step` is one inference iteration:
   (:meth:`PagedExecutor.decode`: device rows through the paged decode
   kernel, host rows through host attention), and greedy sampling in plan
   order.
+
+On the contiguous path (ssm and hybrid families, device-only) the scheduler
+sees one "page" per slot of :class:`ContiguousExecutor`; a step prefills its
+new requests one at a time into free slots, then runs one decode over all
+slots in which only the running rows' slots advance.
 
 This is the reference engine's ``pipeline=False`` path.  Its pipelined
 execution (async swaps, concurrent host lanes, plan-ahead) is ROADMAP P7;
@@ -35,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ArchConfig, EngineConfig
-from repro_torch.core.executor import PagedExecutor
+from repro_torch.core.executor import ContiguousExecutor, PagedExecutor
 from repro_torch.core.host_attention import HostAttention
 from repro_torch.core.kv_cache import DualPool
 from repro_torch.core.perfmodel import PerfModel
@@ -43,6 +50,8 @@ from repro_torch.core.request import Request, RequestState
 from repro_torch.core.scheduler import BatchPlan, NeoScheduler, PoolView
 from repro_torch.device import resolve_device
 from repro_torch.models.api import get_model
+
+PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclass
@@ -95,7 +104,7 @@ def _unsupported(engine_cfg: EngineConfig) -> Optional[str]:
 class NeoEngine:
     """The NEO serving engine on the card (``device="cpu"`` for the CPU).
 
-    ``params`` is a state dict of the port's :class:`DenseLM` (for example
+    ``params`` is a state dict of the port's model (for example
     :func:`repro_torch.models.bridge.params_from_reference` of a reference
     tree); without it the weights are random, from a ``torch.Generator``
     seeded with ``engine_cfg.seed``.
@@ -112,9 +121,6 @@ class NeoEngine:
         why = _unsupported(engine_cfg)
         if why is not None:
             raise NotImplementedError(why)
-        if not cfg.supports_offload:
-            raise NotImplementedError(
-                f"{cfg.name}: the contiguous-cache engine is not ported yet (ROADMAP P12)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine_cfg = engine_cfg
@@ -127,16 +133,25 @@ class NeoEngine:
                                        strict=True)
         self.perf = PerfModel.for_arch(cfg, engine_cfg.hw_profile, engine_cfg.ewma_alpha)
         self.scheduler = NeoScheduler(cfg, engine_cfg, self.perf)
-        self.pool = DualPool(cfg, engine_cfg.device_pool_pages,
-                             engine_cfg.host_pool_pages, device=self.device)
-        # page 0 stays reserved, as in the reference (its decode scratch
-        # page), so both engines see the same device page budget
-        self._scratch = self.pool.device.alloc(1)
-        self.host_attn = HostAttention(cfg, self.pool.host.k.numpy(),
-                                       self.pool.host.v.numpy(),
-                                       threads=engine_cfg.host_threads)
-        self.executor = PagedExecutor(self.model, self.pool, self.host_attn)
-        self._page = cfg.kv_block_size
+        self.paged = cfg.family in PAGED_FAMILIES and cfg.supports_offload
+        if self.paged:
+            self.pool = DualPool(cfg, engine_cfg.device_pool_pages,
+                                 engine_cfg.host_pool_pages, device=self.device)
+            # page 0 stays reserved, as in the reference (its decode scratch
+            # page), so both engines see the same device page budget
+            self._scratch = self.pool.device.alloc(1)
+            self.host_attn = HostAttention(cfg, self.pool.host.k.numpy(),
+                                           self.pool.host.v.numpy(),
+                                           threads=engine_cfg.host_threads)
+            self.executor = PagedExecutor(self.model, self.pool, self.host_attn)
+            self._page = cfg.kv_block_size
+        else:
+            self.executor = ContiguousExecutor(
+                self.model, slots=min(engine_cfg.max_requests, 64),
+                capacity=engine_cfg.max_batch_tokens)
+            self._page = self.executor.capacity  # 1 "page" == 1 slot for the scheduler
+            self.pool = None
+            self.host_attn = None
         self._rng = np.random.default_rng(engine_cfg.seed)
         self._next_rid = 0
         self.requests: Dict[int, Request] = {}
@@ -198,12 +213,20 @@ class NeoEngine:
     # helpers
     # ------------------------------------------------------------------
     def _pool_view(self) -> PoolView:
+        if self.paged:
+            return PoolView(
+                page_size=self._page,
+                device_free=self.pool.device.free_pages,
+                host_free=self.pool.host.free_pages,
+                device_total=self.pool.device.num_pages - 1,  # minus scratch
+                host_total=self.pool.host.num_pages,
+            )
         return PoolView(
             page_size=self._page,
-            device_free=self.pool.device.free_pages,
-            host_free=self.pool.host.free_pages,
-            device_total=self.pool.device.num_pages - 1,  # minus scratch
-            host_total=self.pool.host.num_pages,
+            device_free=len(self.executor.free_slots),
+            host_free=0,
+            device_total=self.executor.slots,
+            host_total=0,
         )
 
     def _sample(self, logits: np.ndarray) -> int:
@@ -228,7 +251,10 @@ class NeoEngine:
         req.state = RequestState.FINISHED
         req.finish_time = now
         if req.pages:
-            self.pool.pool(req.location).free(req.pages)
+            if self.paged:
+                self.pool.pool(req.location).free(req.pages)
+            else:
+                self.executor.free_slot(req.pages[0])
         req.pages = []
 
     # ------------------------------------------------------------------
@@ -239,7 +265,7 @@ class NeoEngine:
         t0 = time.perf_counter()
         now = self.clock if now is None else now
         self.clock = now
-        host_busy0 = self.host_attn.busy_time
+        host_busy0 = self.host_attn.busy_time if self.paged else 0.0
         dev_busy0 = self.stats.device_busy_time
 
         p0 = time.perf_counter()
@@ -251,23 +277,28 @@ class NeoEngine:
         self.stats.record_plan(plan)
 
         emitted: List[Tuple[int, int]] = []
-        self._step_paged(plan, now, emitted)
+        if self.paged:
+            self._step_paged(plan, now, emitted)
+        else:
+            self._step_contiguous(plan, now, emitted)
 
         for req in plan.prefill + plan.decode_rows:
             if req.state == RequestState.RUNNING and req.is_done():
                 self._finish(req, now)
         self.scheduler.remove_finished()
 
-        # perf-model refresh from measured stage times (EWMA)
         self.stats.wall_time += time.perf_counter() - t0
-        host_busy = self.host_attn.busy_time - host_busy0
-        self.stats.host_busy_time += host_busy
-        self.perf.observe_iteration(
-            plan.stages,
-            host_busy=host_busy,
-            device_busy=self.stats.device_busy_time - dev_busy0,
-            pipelined=False,
-        )
+        if self.paged:
+            # perf-model refresh from measured stage times (EWMA); the
+            # reference refreshes it on the paged path only
+            host_busy = self.host_attn.busy_time - host_busy0
+            self.stats.host_busy_time += host_busy
+            self.perf.observe_iteration(
+                plan.stages,
+                host_busy=host_busy,
+                device_busy=self.stats.device_busy_time - dev_busy0,
+                pipelined=False,
+            )
         return emitted
 
     def _step_paged(self, plan: BatchPlan, now: float,
@@ -332,12 +363,45 @@ class NeoEngine:
             for i, r in enumerate(rows):
                 self._emit(r, logits[i], now, emitted)
 
+    def _step_contiguous(self, plan: BatchPlan, now: float,
+                         emitted: List[Tuple[int, int]]) -> None:
+        self.scheduler.commit(plan)
+        t0 = time.perf_counter()
+        for r in plan.prefill:
+            slot = self.executor.alloc_slot()
+            r.pages = [slot]
+            logits = self.executor.prefill(r, slot)
+            self.stats.prefill_tokens += r.prompt_len
+            self._emit(r, logits, now, emitted)
+        if plan.prefill:
+            dt = time.perf_counter() - t0
+            self.stats.device_busy_time += dt
+            self.stats.lane_add("prefill", dt)
+        rows = [r for r in plan.decode_rows if r.state == RequestState.RUNNING
+                and r not in plan.prefill]
+        if rows:
+            t0 = time.perf_counter()
+            tokens_by_slot = np.zeros((self.executor.slots,), np.int64)
+            active = np.zeros((self.executor.slots,), bool)
+            for r in rows:
+                tokens_by_slot[r.pages[0]] = r.all_tokens[-1]
+                active[r.pages[0]] = True
+            logits = self.executor.decode(tokens_by_slot, active)
+            dt = time.perf_counter() - t0
+            self.stats.device_busy_time += dt
+            self.stats.lane_add("serial", dt)
+            self.stats.device_decodes += len(rows)
+            for r in rows:
+                self._emit(r, logits[r.pages[0]], now, emitted)
+
     # ------------------------------------------------------------------
     # lifecycle and drivers
     # ------------------------------------------------------------------
     def close(self) -> None:
-        """Stop the host-attention worker threads (idempotent)."""
-        self.host_attn.close()
+        """Stop the host-attention worker threads (idempotent; a contiguous
+        engine has none)."""
+        if self.host_attn is not None:
+            self.host_attn.close()
 
     def run_until_done(self, max_iters: int = 10_000) -> Dict[int, List[int]]:
         """Drain all queued work; returns {rid: out_tokens}."""

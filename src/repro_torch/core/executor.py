@@ -1,7 +1,7 @@
-"""Execution backend of the NEO engine for the dense family (serial path).
+"""Execution backends of the NEO engine (serial path).
 
-:class:`PagedExecutor` runs decode over the paged dual-pool KV cache and
-cold prefill.  Per decode step and layer:
+:class:`PagedExecutor` (dense family) runs decode over the paged dual-pool
+KV cache and cold prefill.  Per decode step and layer:
 
 * the projections (norm, QKV, qk_norm, RoPE) run on the device for all rows;
 * device rows append their new K/V to the device pool in place;
@@ -22,11 +22,15 @@ depend on which rows share its batch (up to the matmul's choice of
 algorithm for a different row count on the card; ROADMAP ground rule 3).
 The pipelined host lanes, row/page buckets for jit and tensor parallelism of
 the reference executor are not ported here (ROADMAP P7, P13).
+
+:class:`ContiguousExecutor` (ssm and hybrid families, device-only) keeps one
+slot of a contiguous cache per active request and runs the model's own
+prefill (one request at a time) and decode (all slots at once).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -169,4 +173,73 @@ class PagedExecutor:
                 self.pool.add_swap_bytes(2 * kr.numel() * self.pool.host.k.element_size())
             else:
                 self.pool.device.put_pages(r.pages, kr, vr)
+        return logits.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Contiguous slot executor (ssm / hybrid; device-only)
+# ---------------------------------------------------------------------------
+
+
+class ContiguousExecutor:
+    """Slot-based contiguous-cache executor driven by the model's own
+    prefill/decode.  One slot per active request; decode computes every slot
+    and advances the decoding ones."""
+
+    def __init__(self, model, *, slots: int, capacity: int):
+        self.model = model
+        self.cfg: ArchConfig = model.cfg
+        self.slots = slots
+        self.capacity = capacity
+        self.device = model.device
+        shapes = model.cache_shape(slots, capacity)
+        self._batch_axes: Dict[str, int] = {name: axes.index("batch")
+                                            for name, (_, _, axes) in shapes.items()}
+        self.cache = model.init_cache(slots, capacity)
+        self.free_slots = list(range(slots))
+
+    # -- slot management ------------------------------------------------------
+    def alloc_slot(self) -> int:
+        return self.free_slots.pop(0)
+
+    def free_slot(self, s: int) -> None:
+        self.free_slots.insert(0, s)
+
+    def _insert(self, one: Dict[str, torch.Tensor], slot: int) -> None:
+        """Copy a one-request cache into ``slot`` of every leaf, zero-padding
+        variable-size dims to the slot's shape."""
+        for name, leaf in self.cache.items():
+            ax = self._batch_axes[name]
+            src = one[name]
+            if src.shape[ax] == 1:
+                src = src.select(ax, 0)
+            dst = leaf.select(ax, slot)
+            if src.shape != dst.shape:
+                pad = []
+                for have, want in zip(reversed(src.shape), reversed(dst.shape)):
+                    pad += [0, want - have]
+                src = torch.nn.functional.pad(src, pad)
+            dst.copy_(src)
+
+    # -- serve ------------------------------------------------------------------
+    @torch.inference_mode()
+    def prefill(self, req: Request, slot: int) -> np.ndarray:
+        """Prefill ``req`` alone and insert its cache into ``slot``; returns
+        its first-token float32 logits [V]."""
+        tokens = torch.tensor([req.prefill_tokens], dtype=torch.long, device=self.device)
+        logits, one = self.model.prefill(tokens, capacity=self.capacity)
+        self._insert(one, slot)
+        return logits[0].cpu().numpy()
+
+    @torch.inference_mode()
+    def decode(self, tokens_by_slot: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """One decode step over every slot; returns float32 logits [slots, V].
+        Only the ``active`` slots' caches advance: a slot prefilled in this
+        iteration, or a free one, keeps its cache.  (The reference advances
+        every slot, so a request prefilled in an iteration that also decodes
+        other rows takes one step on token 0 before its first real decode;
+        ROADMAP queue 3.)"""
+        tokens = torch.from_numpy(np.asarray(tokens_by_slot, np.int64)).to(self.device)
+        mask = torch.from_numpy(np.asarray(active, bool)).to(self.device)
+        logits, self.cache = self.model.decode(tokens, self.cache, active=mask)
         return logits.cpu().numpy()

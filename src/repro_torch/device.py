@@ -25,12 +25,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "int32": torch.int32}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype for a config dtype name (``ArchConfig.param_dtype`` /
-    ``activation_dtype``)."""
+    ``activation_dtype``, or a cache leaf's dtype name)."""
     try:
         return _DTYPES[name]
     except KeyError:

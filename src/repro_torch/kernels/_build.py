@@ -5,7 +5,9 @@ A kernel is one ``.cu`` file with a plain C entry point, compiled by
 (no PyTorch headers, so a build takes seconds, not minutes).  Libraries land
 in ``build/kernels/`` at the repository root, named by a hash of the sources
 and flags, so a changed source rebuilds and an unchanged one is reused.
-Nothing is built at import time: :func:`load` builds on first use.
+Nothing is built at import time: :func:`load` builds on first use, and
+:func:`build_all` compiles several sources at once (one ``nvcc`` process per
+source, all started together, then joined).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -45,21 +48,42 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(source: Path) -> str:
-    """Compile ``source`` unless its library is built already.  Returns the
+def build_all(sources: Sequence[Path]) -> Dict[Path, str]:
+    """Compile every source whose library is not built yet, one ``nvcc``
+    each, all started together and then joined.  Returns each source's
     compiler log (``-Xptxas -v``: registers, shared memory, spills), or ""
-    when nothing was built; raises with the log if nvcc fails."""
-    target = library_path(source)
-    if target.exists():
-        return ""
+    when nothing was built for it; raises with the logs of the sources that
+    failed once every process has ended."""
+    logs: Dict[Path, str] = {s: "" for s in sources}
+    todo = [s for s in sources if not library_path(s).exists()]
+    if not todo:
+        return logs
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source.name}:\n{proc.stdout}")
-    os.replace(tmp, target)
-    return proc.stdout
+    running = []
+    for source in todo:
+        target = library_path(source)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((source, proc, tmp, target))
+    failed = []
+    for source, proc, tmp, target in running:
+        out, _ = proc.communicate()
+        logs[source] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source.name}:\n{out}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def build(source: Path) -> str:
+    """Compile ``source`` unless its library is built already (see
+    :func:`build_all`)."""
+    return build_all([source])[source]
 
 
 @functools.lru_cache(maxsize=None)

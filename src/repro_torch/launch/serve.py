@@ -6,8 +6,13 @@ arrival time passes, one engine step per loop turn.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --no-pipeline --trace osc --n 8 --rate 4 --policy neo
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --no-pipeline
 
-Flags are the JAX launcher's.  Only the serial engine is ported, so
+Flags are the JAX launcher's.  The dense archs run through the paged engine;
+``rwkv6-7b`` (ssm) and ``zamba2-7b`` (hybrid) through the contiguous engine,
+for which the pool flags (``--device-pages``, ``--host-pages``) do not apply
+and are ignored, as the JAX launcher ignores them, and ``--max-batch-tokens``
+is each slot's capacity.  Only the serial engine is ported, so
 ``--no-pipeline`` is required; the open-loop runner (``--arrivals``,
 ``--sustained``, ``--slo-ttft``, ``--slo-tpot``), the pipelined engine's
 knobs (``--no-microbatch``, ``--max-host-lanes``, ``--no-planahead``), the
@@ -47,7 +52,8 @@ def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
     metrics.prefill_tokens_computed = s.prefill_tokens
     metrics.plan_busy_time = s.plan_busy_time
     metrics.rejected_requests = s.rejected_requests
-    metrics.swap_bytes = engine.pool.swap_bytes
+    if engine.pool is not None:
+        metrics.swap_bytes = engine.pool.swap_bytes
 
 
 def run_trace(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,

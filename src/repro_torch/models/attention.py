@@ -5,7 +5,9 @@ JAX package leaves these to XLA.
   [Sq, Skv] score matrix is never materialised whole.  The engine's cold
   prefill uses it.
 * :func:`decode_attention` — one-token decode over a contiguous per-sequence
-  cache; the dense oracle's decode path.
+  cache; the dense oracle's decode path and zamba2's shared-attention decode.
+* :func:`write_kv` — write each row's new K/V at its own position (zamba2's
+  ring buffer writes at ``lens % capacity``).
 
 The engine's device-row decode attention over the paged pool is the CUDA
 kernel in :mod:`repro_torch.kernels.paged_decode`.
@@ -88,3 +90,17 @@ def decode_attention(
     s = torch.where(mask[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p.to(vr.dtype), vr)
+
+
+def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k_new: torch.Tensor,
+             v_new: torch.Tensor, pos: torch.Tensor, rows=None) -> None:
+    """cache [B, S, KV, hd]; new [B, KV, hd]; writes row b's new K/V at
+    ``pos[b]`` (clipped to the cache) in place (the reference returns new
+    caches; the port saves the copy), for the ``rows`` (indices) only when
+    given."""
+    S = cache_k.shape[1]
+    if rows is None:
+        rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    p = pos[rows].long().clamp(0, S - 1)
+    cache_k[rows, p] = k_new[rows].to(cache_k.dtype)
+    cache_v[rows, p] = v_new[rows].to(cache_v.dtype)

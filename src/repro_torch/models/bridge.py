@@ -1,14 +1,23 @@
-"""Weight bridge between the JAX package's ``DenseLM.init`` parameter tree
-and the port's :class:`~repro_torch.models.transformer.DenseLM`.
+"""Weight bridge between the JAX package's parameter trees and the port's
+state dicts, for the three ported families.
 
-The reference tree (``transformer.py:249-271`` of the JAX package) holds
-``embed``, ``final_norm``, an optional ``unembed``, ``prefix{i}`` layers and
-``blocks/sub{j}`` layers stacked on a leading group axis by ``jax.vmap``;
-layer ``i`` of a model with ``P`` prefix layers and ``r`` layers per group is
-``prefix{i}`` for ``i < P`` and ``blocks/sub{j}[g]`` with
-``i = P + g*r + j`` otherwise.  Leaves arrive as numpy arrays (the caller
-converts jax arrays with ``np.asarray``); leaf layouts are the same on both
-sides, so the bridge only renames and unstacks.
+* dense (``DenseLM``): the reference tree (``transformer.py:249-271`` of the
+  JAX package) holds ``embed``, ``final_norm``, an optional ``unembed``,
+  ``prefix{i}`` layers and ``blocks/sub{j}`` layers stacked on a leading
+  group axis by ``jax.vmap``; layer ``i`` of a model with ``P`` prefix
+  layers and ``r`` layers per group is ``prefix{i}`` for ``i < P`` and
+  ``blocks/sub{j}[g]`` with ``i = P + g*r + j`` otherwise.
+* ssm (``RWKV6LM``): ``embed``, ``ln0``, ``final_norm``, ``unembed`` and
+  ``blocks`` stacked on ``[L, ...]`` (``rwkv6.py:99-111``); layer ``i`` is
+  ``blocks.{i}`` in the port.
+* hybrid (``Zamba2LM``): ``embed``, ``final_norm``, ``unembed``, ``shared``
+  and the Mamba2 blocks stacked as ``mamba_groups`` [G, per_group, ...] and
+  ``mamba_tail`` [tail, ...] (``zamba2.py:71-87``); block ``g*per_group + j``
+  and ``G*per_group + t`` are ``mamba.{i}`` in the port.
+
+Leaves arrive as numpy arrays (the caller converts jax arrays with
+``np.asarray``); leaf layouts are the same on both sides, so the bridge only
+renames and unstacks.
 """
 
 from __future__ import annotations
@@ -22,7 +31,6 @@ import torch
 from repro_torch.config import ArchConfig
 
 Tree = Dict[str, Any]
-_LAYER = re.compile(r"layers\.(\d+)\.(.+)")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -55,10 +63,87 @@ def _layout(tree: Mapping[str, Any]):
     return n_prefix, len(subs)
 
 
+def _nest(flat: Mapping[str, np.ndarray]) -> Tree:
+    out: Tree = {}
+    for name, a in flat.items():
+        node = out
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = a
+    return out
+
+
+def _unstack(tree: Mapping[str, Any], lead: int, index) -> Dict[str, torch.Tensor]:
+    """{port name: tensor} for every slice of the leaves of ``tree``, whose
+    ``lead`` leading axes are stacked layers; ``index`` maps the stacked
+    position (a tuple) to the port's ``prefix.{i}.``."""
+    state: Dict[str, torch.Tensor] = {}
+    for name, leaf in _flatten(tree).items():
+        stacked = np.asarray(leaf)
+        for pos in np.ndindex(*stacked.shape[:lead]):
+            state[f"{index(pos)}{name}"] = _to_tensor(stacked[pos])
+    return state
+
+
+def _split_layers(state: Mapping[str, torch.Tensor], prefix: str):
+    """({layer: {name: array}}, {top-level name: array}) of a port state dict
+    whose layers are ``{prefix}.{i}.{name}``."""
+    pat = re.compile(rf"{re.escape(prefix)}\.(\d+)\.(.+)")
+    layers: Dict[int, Dict[str, np.ndarray]] = {}
+    rest: Dict[str, np.ndarray] = {}
+    for k, t in state.items():
+        m = pat.match(k)
+        if m is None:
+            rest[k] = _to_numpy(t)
+        else:
+            layers.setdefault(int(m.group(1)), {})[m.group(2)] = _to_numpy(t)
+    return layers, rest
+
+
+def _stack(layers: Mapping[int, Mapping[str, np.ndarray]], idx) -> Tree:
+    names = layers[idx[0]].keys()
+    return _nest({n: np.stack([layers[i][n] for i in idx]) for n in names})
+
+
+def _check_layers(state: Mapping[str, torch.Tensor], prefix: str, n_want: int,
+                  cfg: ArchConfig) -> None:
+    pat = re.compile(rf"{re.escape(prefix)}\.(\d+)\.")
+    n = len({m.group(1) for m in map(pat.match, state) if m})
+    if n != n_want:
+        raise ValueError(f"reference tree holds {n} layers, {cfg.name} has {n_want}")
+
+
+def _zamba2_layout(cfg: ArchConfig):
+    every = cfg.shared_attn_every
+    groups = cfg.num_layers // every
+    return groups, every, cfg.num_layers - groups * every
+
+
 def params_from_reference(tree: Mapping[str, Any], cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     """Reference parameter tree -> the port's state dict (CPU tensors)."""
-    n_prefix, r = _layout(tree)
     state: Dict[str, torch.Tensor] = {}
+    if cfg.family == "ssm":
+        for k in ("embed", "ln0", "final_norm", "unembed"):
+            state[k] = _to_tensor(tree[k])
+        state.update(_unstack(tree["blocks"], 1, lambda pos: f"blocks.{pos[0]}."))
+        _check_layers(state, "blocks", cfg.num_layers, cfg)
+        return state
+    if cfg.family == "hybrid":
+        G, r, _ = _zamba2_layout(cfg)
+        for k in ("embed", "final_norm", "unembed"):
+            state[k] = _to_tensor(tree[k])
+        for name, leaf in _flatten(tree["shared"]).items():
+            state[f"shared.{name}"] = _to_tensor(leaf)
+        if "mamba_groups" in tree:
+            state.update(_unstack(tree["mamba_groups"], 2,
+                                  lambda pos: f"mamba.{pos[0] * r + pos[1]}."))
+        if "mamba_tail" in tree:
+            state.update(_unstack(tree["mamba_tail"], 1,
+                                  lambda pos: f"mamba.{G * r + pos[0]}."))
+        _check_layers(state, "mamba", cfg.num_layers, cfg)
+        return state
+    n_prefix, r = _layout(tree)
     for k in ("embed", "final_norm", "unembed"):
         if k in tree:
             state[k] = _to_tensor(tree[k])
@@ -66,49 +151,39 @@ def params_from_reference(tree: Mapping[str, Any], cfg: ArchConfig) -> Dict[str,
         for name, leaf in _flatten(tree[f"prefix{i}"]).items():
             state[f"layers.{i}.{name}"] = _to_tensor(leaf)
     for j in range(r):
-        for name, leaf in _flatten(tree["blocks"][f"sub{j}"]).items():
-            stacked = np.asarray(leaf)
-            for g in range(stacked.shape[0]):
-                state[f"layers.{n_prefix + g * r + j}.{name}"] = _to_tensor(stacked[g])
-    n_layers = len({m.group(1) for m in map(_LAYER.match, state) if m})
-    if n_layers != cfg.num_layers:
-        raise ValueError(f"reference tree holds {n_layers} layers, "
-                         f"{cfg.name} has {cfg.num_layers}")
+        state.update(_unstack(tree["blocks"][f"sub{j}"], 1,
+                              lambda pos, j=j: f"layers.{n_prefix + pos[0] * r + j}."))
+    _check_layers(state, "layers", cfg.num_layers, cfg)
     return state
 
 
 def params_to_reference(state: Mapping[str, torch.Tensor], cfg: ArchConfig,
                         *, n_prefix: int = 0, per_group: int = 1) -> Tree:
     """The port's state dict -> a reference-shaped tree of numpy arrays
-    (the inverse of :func:`params_from_reference`)."""
-    tree: Tree = {}
-    layers: Dict[int, Dict[str, np.ndarray]] = {}
-    for k, t in state.items():
-        m = _LAYER.match(k)
-        if m is None:
-            tree[k] = _to_numpy(t)
-        else:
-            layers.setdefault(int(m.group(1)), {})[m.group(2)] = _to_numpy(t)
-
-    def nest(flat: Mapping[str, np.ndarray]) -> Tree:
-        out: Tree = {}
-        for name, a in flat.items():
-            node = out
-            *path, leaf = name.split(".")
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = a
-        return out
-
+    (the inverse of :func:`params_from_reference`; ``n_prefix`` and
+    ``per_group`` describe a dense tree's layer stacking)."""
+    if cfg.family == "ssm":
+        layers, tree = _split_layers(state, "blocks")
+        tree["blocks"] = _stack(layers, list(range(cfg.num_layers)))
+        return tree
+    if cfg.family == "hybrid":
+        G, r, tail = _zamba2_layout(cfg)
+        layers, rest = _split_layers(state, "mamba")
+        tree = _nest(rest)
+        if G:
+            groups = [_stack(layers, list(range(g * r, (g + 1) * r))) for g in range(G)]
+            tree["mamba_groups"] = {n: np.stack([gr[n] for gr in groups])
+                                    for n in groups[0]}
+        if tail:
+            tree["mamba_tail"] = _stack(layers, list(range(G * r, cfg.num_layers)))
+        return tree
+    layers, tree = _split_layers(state, "layers")
     for i in range(n_prefix):
-        tree[f"prefix{i}"] = nest(layers[i])
+        tree[f"prefix{i}"] = _nest(layers[i])
     n_groups = (cfg.num_layers - n_prefix) // per_group
-    blocks: Tree = {}
-    for j in range(per_group):
-        idx = [n_prefix + g * per_group + j for g in range(n_groups)]
-        names = layers[idx[0]].keys()
-        blocks[f"sub{j}"] = nest({n: np.stack([layers[i][n] for i in idx]) for n in names})
-    tree["blocks"] = blocks
+    tree["blocks"] = {f"sub{j}": _stack(layers, [n_prefix + g * per_group + j
+                                                 for g in range(n_groups)])
+                      for j in range(per_group)}
     return tree
 
 

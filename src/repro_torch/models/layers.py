@@ -1,5 +1,6 @@
 """Shared building blocks: norms, rotary embeddings, the SwiGLU MLP,
-embedding lookup, logits, and the initialisers.
+embedding lookup, logits, the initialisers, and the parameter and cache
+helpers the models share.
 
 Plain functions on tensors.  Weight layouts follow the JAX package
 (``w_gate [d, f]``, ``w_down [f, d]``, ``embed [V, d]``) so the bridge and
@@ -14,8 +15,40 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.device import torch_dtype
 
 Params = Mapping[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Parameters and caches
+# ---------------------------------------------------------------------------
+
+
+def param(shape: Sequence[int], dtype: torch.dtype, device) -> nn.Parameter:
+    """An uninitialised, frozen parameter (weights come from ``init`` or a
+    loaded state dict)."""
+    return nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def zeros_cache(shapes, device) -> dict:
+    """Zero tensors for a model's ``cache_shape`` ({name: (shape, dtype
+    name, logical axes)})."""
+    return {name: torch.zeros(shp, dtype=torch_dtype(dt), device=device)
+            for name, (shp, dt, _) in shapes.items()}
+
+
+def commit_rows(leaf: torch.Tensor, new: torch.Tensor,
+                active: Optional[torch.Tensor]) -> None:
+    """Write ``new`` into ``leaf`` (rows on the leading axis) in place, for
+    the ``active`` rows only when a mask is given."""
+    if active is None:
+        leaf.copy_(new)
+    else:
+        leaf.copy_(torch.where(active.view(-1, *([1] * (new.ndim - 1))), new, leaf))
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +84,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """GroupNorm over the trailing head_dim, per head (RWKV ``ln_x``);
+    x: [..., H, N], scale/bias: [H, N]."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -26,16 +26,12 @@ from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
     logits_last,
+    param,
     rms_norm,
     swiglu_apply,
 )
 
 Cache = Dict[str, torch.Tensor]
-
-
-def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
 
 
 def project_qkv(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor):
@@ -59,50 +55,75 @@ def out_proj(p, o: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d)
 
 
+def attn_full(p, cfg: ArchConfig, x: torch.Tensor, *, causal: bool = True,
+              window: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence attention (prefill); x: [B, S, d] normalised input.
+    Returns (out [B, S, d], roped k [B, S, KV, hd], v [B, S, KV, hd])."""
+    S = x.shape[1]
+    q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device))
+    o = attn_lib.chunked_attention(q, k, v, causal=causal, window=window)
+    return out_proj(p, o), k, v
+
+
+def attn_params(cfg: ArchConfig, dtype: torch.dtype, device) -> nn.ParameterDict:
+    """``wq [d, H, hd]``, ``wk``/``wv [d, KV, hd]``, ``wo [H, hd, d]`` and,
+    with ``qk_norm``, the q/k norm scales (uninitialised)."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = {"wq": param((d, H, hd), dtype, device),
+            "wk": param((d, KV, hd), dtype, device),
+            "wv": param((d, KV, hd), dtype, device),
+            "wo": param((H, hd, d), dtype, device)}
+    if cfg.qk_norm:
+        attn["q_norm"] = param((hd,), torch.float32, device)
+        attn["k_norm"] = param((hd,), torch.float32, device)
+    return nn.ParameterDict(attn)
+
+
+def init_attn(attn: nn.ParameterDict, cfg: ArchConfig, g: torch.Generator) -> None:
+    """The reference's ``attn_params`` distributions."""
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    for n in ("q_norm", "k_norm"):
+        if n in attn:
+            attn[n].data.fill_(1.0)
+    for n, fan_in in (("wq", d), ("wk", d), ("wv", d), ("wo", H * hd)):
+        w = attn[n]
+        w.data.copy_(dense_init(g, w.shape, fan_in, w.dtype, w.device))
+
+
+def mlp_params(d: int, f: int, dtype: torch.dtype, device) -> nn.ParameterDict:
+    return nn.ParameterDict({"w_gate": param((d, f), dtype, device),
+                             "w_up": param((d, f), dtype, device),
+                             "w_down": param((f, d), dtype, device)})
+
+
+def init_mlp(mlp: nn.ParameterDict, g: torch.Generator) -> None:
+    for n in ("w_gate", "w_up", "w_down"):
+        w = mlp[n]
+        w.data.copy_(dense_init(g, w.shape, w.shape[0], w.dtype, w.device))
+
+
 class Block(nn.Module):
     """One decoder layer: RMSNorm → GQA attention → RMSNorm → SwiGLU."""
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
         super().__init__()
-        d, H, KV, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                           cfg.head_dim, cfg.d_ff)
         f32 = torch.float32
-        self.ln1 = _param((d,), f32, device)
-        self.ln2 = _param((d,), f32, device)
-        attn = {"wq": _param((d, H, hd), dtype, device),
-                "wk": _param((d, KV, hd), dtype, device),
-                "wv": _param((d, KV, hd), dtype, device),
-                "wo": _param((H, hd, d), dtype, device)}
-        if cfg.qk_norm:
-            attn["q_norm"] = _param((hd,), f32, device)
-            attn["k_norm"] = _param((hd,), f32, device)
-        self.attn = nn.ParameterDict(attn)
-        self.mlp = nn.ParameterDict({"w_gate": _param((d, f), dtype, device),
-                                     "w_up": _param((d, f), dtype, device),
-                                     "w_down": _param((f, d), dtype, device)})
+        self.ln1 = param((cfg.d_model,), f32, device)
+        self.ln2 = param((cfg.d_model,), f32, device)
+        self.attn = attn_params(cfg, dtype, device)
+        self.mlp = mlp_params(cfg.d_model, cfg.d_ff, dtype, device)
 
     def init(self, cfg: ArchConfig, g: torch.Generator) -> None:
-        d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
-        dev = self.ln1.device
         for n in ("ln1", "ln2"):
             getattr(self, n).data.fill_(1.0)
-        for n in ("q_norm", "k_norm"):
-            if n in self.attn:
-                self.attn[n].data.fill_(1.0)
-        for n, fan_in in (("wq", d), ("wk", d), ("wv", d), ("wo", H * hd)):
-            w = self.attn[n]
-            w.data.copy_(dense_init(g, w.shape, fan_in, w.dtype, dev))
-        for n in ("w_gate", "w_up", "w_down"):
-            w = self.mlp[n]
-            w.data.copy_(dense_init(g, w.shape, w.shape[0], w.dtype, dev))
+        init_attn(self.attn, cfg, g)
+        init_mlp(self.mlp, g)
 
     def full(self, cfg: ArchConfig, x: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Causal full-sequence layer; returns (x, roped k, v)."""
-        S = x.shape[1]
-        h = rms_norm(x, self.ln1, cfg.rms_eps)
-        q, k, v = project_qkv(self.attn, cfg, h, torch.arange(S, device=x.device))
-        x = x + out_proj(self.attn, attn_lib.chunked_attention(q, k, v, causal=True))
+        o, k, v = attn_full(self.attn, cfg, rms_norm(x, self.ln1, cfg.rms_eps))
+        x = x + o
         x = x + swiglu_apply(self.mlp, rms_norm(x, self.ln2, cfg.rms_eps))
         return x, k, v
 
@@ -118,17 +139,17 @@ class DenseLM(nn.Module):
         super().__init__()
         if cfg.family != "dense" or cfg.moe is not None or cfg.modality is not None:
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP P11 for moe/vlm, P12 for ssm/hybrid/audio)")
+                f"{cfg.name}: DenseLM serves the dense family only, not {cfg.family!r} "
+                "(ROADMAP P11 ports moe/vlm; models.api.get_model builds ssm/hybrid)")
         if cfg.kv_cache_dtype:
             raise NotImplementedError("int8 KV cache is not ported yet (ROADMAP P11)")
         self.cfg = cfg
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.param_dtype)
-        self.embed = _param((cfg.vocab_size, cfg.d_model), dtype, dev)
-        self.final_norm = _param((cfg.d_model,), torch.float32, dev)
+        self.embed = param((cfg.vocab_size, cfg.d_model), dtype, dev)
+        self.final_norm = param((cfg.d_model,), torch.float32, dev)
         if not cfg.tie_embeddings:
-            self.unembed = _param((cfg.d_model, cfg.vocab_size), dtype, dev)
+            self.unembed = param((cfg.d_model, cfg.vocab_size), dtype, dev)
         self.layers = nn.ModuleList(Block(cfg, dtype, dev) for _ in range(cfg.num_layers))
 
     @property

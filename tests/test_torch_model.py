@@ -155,10 +155,28 @@ def test_oracle_decode_greedy_tokens_match(pair):
 
 
 def test_unported_families_raise():
-    for arch in ("deepseek-moe-16b", "rwkv6-7b", "zamba2-7b", "internvl2-1b",
-                 "seamless-m4t-medium"):
+    for arch in ("deepseek-moe-16b", "internvl2-1b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP P1[12]"):
             get_model(get_smoke_config(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b", "zamba2-7b"])
+def test_engine_path_follows_reference_rule(arch):
+    """Paged or contiguous as the reference decides
+    (``family in PAGED_FAMILIES and supports_offload``): zamba2-7b keeps
+    ``supports_offload=True`` but, being hybrid, is contiguous."""
+    from repro.core.engine import PAGED_FAMILIES
+
+    from repro_torch.config import EngineConfig
+    from repro_torch.core.engine import NeoEngine
+
+    cfg = get_smoke_config(arch)
+    eng = NeoEngine(cfg, EngineConfig(pipeline=False, device_pool_pages=8,
+                                      host_pool_pages=8, max_batch_tokens=64), device="cpu")
+    want = cfg.family in PAGED_FAMILIES and cfg.supports_offload
+    assert eng.paged == want and (eng.pool is not None) == want
+    assert type(eng.executor).__name__ == ("PagedExecutor" if want else "ContiguousExecutor")
+    eng.close()
 
 
 def test_config_copies_match_reference():

@@ -58,6 +58,18 @@ def test_cli_runs_on_cpu_when_asked(capsys):
     assert '"requests": 3' in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch,mode", [("rwkv6-7b", "gpu_only"), ("zamba2-7b", "asym")])
+def test_cli_serves_contiguous_families_on_cpu(arch, mode, capsys):
+    """The contiguous engine behind the same CLI; the pool flags do not apply
+    to it and are taken and ignored, as the reference's launcher does."""
+    rc = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--no-pipeline",
+                     "--n", "3", "--rate", "64", "--device-pages", "12",
+                     "--host-pages", "32", "--max-batch-tokens", "128"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert '"requests": 3' in out and f"scheduler modes: {{'{mode}'" in out
+
+
 @pytest.mark.parametrize("flags,item", [
     ([], "P7"),
     (["--no-pipeline", "--arrivals", "poisson"], "P6/P7"),

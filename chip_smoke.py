@@ -5,30 +5,38 @@
 
 Phases, each of which fails the run by raising:
 
-1. setup   — versions, the card's name and power limit, build the three CUDA
+1. setup   — versions, the card's name and power limit, build the four CUDA
              kernels from the sources in this checkout (one nvcc per source,
              all started together) and print each kernel's registers, shared
              memory and spills;
 2. kernel  — hold each kernel against its plain PyTorch version over a
-             shape/length/dtype sweep: paged decode attention (with a library
-             yardstick, scaled_dot_product_attention on pre-gathered K/V,
-             which the port never calls), the RWKV6 chunked scan and the
-             Mamba2 SSD chunked scan (ragged T, P != N, strong decay and the
-             full-width shapes included; no single PyTorch call computes
-             either recurrence, so they have no library yardstick); time
-             kernel and plain version at the main path's shapes;
-3. serve   — the port's paths, each driven through ``launch.serve.run_trace``
-             with every kernel's launch counter zeroed just before and read
-             just after: full-width qwen3-0.6b (bf16) through the paged
+             shape/length/dtype sweep: paged decode attention and flash
+             prefill attention (each with a library yardstick,
+             scaled_dot_product_attention, which the port never calls), the
+             RWKV6 chunked scan and the Mamba2 SSD chunked scan (ragged
+             lengths, windows, P != N, strong decay and the full-width shapes
+             included; no single PyTorch call computes either recurrence, so
+             they have no library yardstick); time kernel and plain version
+             at the main path's shapes;
+3. serve   — the port's paths, each driven through ``launch.serve`` with
+             every kernel's launch counter zeroed just before and read just
+             after: full-width qwen3-0.6b (bf16) through the serial paged
              engine with a device pool small enough that the neo policy must
-             offload, then full-width rwkv6-7b and zamba2-7b (bf16) through
-             the contiguous engine, whose every prefill runs the scan kernel
-             once per layer (random weights from a seeded torch.Generator);
+             offload; the same trace and pools through the pipelined engine
+             (async swaps, host lanes, plan-ahead: the default ``serve``);
+             a short open-loop run (``run_online``, Poisson arrivals) on the
+             pipelined engine; then full-width rwkv6-7b and zamba2-7b (bf16)
+             through the contiguous engine, whose every prefill runs the scan
+             kernel once per layer (and zamba2's shared attention the flash
+             prefill kernel once per application); random weights from a
+             seeded torch.Generator;
 4. parity  — each model again in fp32 on the same prompts, every emitted
-             token checked against an oracle on the card: the dense plain
-             prefill over prompt + out[:i] for qwen3-0.6b; the model's own
-             prefill with the plain scan, then teacher-forced decode steps,
-             for rwkv6-7b and zamba2-7b.
+             token checked against an oracle on the card that runs the plain
+             attention and scans, never the kernels: the dense plain prefill
+             over prompt + out[:i] for qwen3-0.6b (the serial engine, then
+             the pipelined one with host rows in batch-1 lanes); the model's
+             own plain prefill, then teacher-forced decode steps, for
+             rwkv6-7b and zamba2-7b.
 
 Output: the card line (nvidia-smi name, power limit), per-case kernel
 lines, the serve summaries, one ``{"kernels": [...]}`` line, the parity
@@ -189,6 +197,116 @@ def kernel_phase(torch):
     return timed, worst
 
 
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+
+
+def prefill_pairs(S, causal, window):
+    """(query, key) pairs one head attends over at length S."""
+    if not causal and not window:
+        return S * S
+    total = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        hi = i if causal else S - 1
+        total += hi - lo + 1
+    return total
+
+
+def flash_bound(q, k, causal, window):
+    """Each of q, k, v and the output once at 3.35 TB/s; the 4 hd FLOPs of
+    QK^T and PV per (query, key) pair a head sees (half the square when
+    causal) at the bf16 tensor-core rate."""
+    B, S, H, hd = q.shape
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + 2 * k.numel() * el
+    flops = 4 * hd * B * H * prefill_pairs(S, causal, window)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_inputs(torch, B, S, H, KV, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(B, S, n, hd, generator=g, device="cuda").to(dtype)
+                 for n in (H, KV, KV))
+
+
+def flash_check(torch, dt_name, c, q, k, v):
+    """Hold flash_prefill to its plain version on (q, k, v) at case ``c``
+    (raises past TOL); returns the largest absolute error."""
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    got = flash_prefill(q, k, v, causal=c["causal"], window=c["window"])
+    torch.cuda.synchronize()
+    want = flash_prefill_ref(q, k, v, causal=c["causal"], window=c["window"])
+    err = _close(torch, "flash_prefill", dt_name, c, [("o", got, want)])
+    log(f"[kernel] flash_prefill {dt_name} {c} max_abs_err={err:.3e} "
+        f"tol={TOL[dt_name]} ok")
+    return err
+
+
+def flash_sweep(torch, cases, seed):
+    """flash_check over ``cases`` in fp32 and bf16; the worst error per dtype."""
+    worst = {}
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for i, c in enumerate(cases):
+            q, k, v = flash_inputs(torch, c["B"], c["S"], c["H"], c["KV"], c["hd"], dtype,
+                                   seed=seed + i)
+            worst[dt_name] = max(worst.get(dt_name, 0.0),
+                                 flash_check(torch, dt_name, c, q, k, v))
+    return worst
+
+
+def flash_time(torch, flush, label, B, S, H, KV, hd, window):
+    """Kernel, plain version and SDPA (causal, GQA; the port never calls it)
+    at one shape in bf16, after holding the kernel to its plain version
+    there; window must not cut below S (SDPA runs causal)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    assert window == 0 or window >= S
+    q, k, v = flash_inputs(torch, B, S, H, KV, hd, torch.bfloat16, seed=7)
+    err = flash_check(torch, "bfloat16", dict(B=B, S=S, H=H, KV=KV, hd=hd, causal=True,
+                                              window=window), q, k, v)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    t_k = time_ms(torch, lambda: flash_prefill(q, k, v, causal=True, window=window), flush)
+    t_p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, causal=True, window=window), flush)
+    t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                enable_gqa=True), flush)
+    b_ms, b_by = flash_bound(q, k, True, window)
+    log(f"[kernel] timing flash_prefill {label}: B={B} S={S} H={H} KV={KV} hd={hd} "
+        f"window={window} bf16 kernel={t_k:.4f} ms plain={t_p:.4f} ms sdpa={t_l:.4f} ms "
+        f"bound={b_ms:.4f} ms ({b_by}) max_abs_err={err:.3e}")
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, shape=f"B={B} S={S} H={H} KV={KV} hd={hd} causal "
+                f"window={window} bf16")
+
+
+def flash_kernel_phase(torch):
+    """flash_prefill against its plain version over test_kernels.py's sweep,
+    the window case, ragged S and the full-width shapes, fp32 and bf16; then
+    timings at qwen3-0.6b's and zamba2-7b's B=1, S=512 prefill shapes."""
+    cases = [dict(B=1, S=128, H=4, KV=4, hd=32, causal=c, window=0) for c in (True, False)]
+    cases += [dict(B=2, S=256, H=8, KV=2, hd=64, causal=c, window=0) for c in (True, False)]
+    cases += [dict(B=1, S=192, H=4, KV=1, hd=48, causal=c, window=0) for c in (True, False)]
+    cases += [dict(B=1, S=128, H=4, KV=4, hd=32, causal=True, window=32),
+              dict(B=2, S=100, H=8, KV=2, hd=64, causal=True, window=0),  # ragged S
+              dict(B=1, S=130, H=8, KV=2, hd=64, causal=False, window=0),
+              dict(B=2, S=200, H=8, KV=2, hd=64, causal=True, window=32),
+              dict(B=1, S=512, H=16, KV=8, hd=128, causal=True, window=0),  # qwen3-0.6b
+              dict(B=1, S=512, H=32, KV=32, hd=112, causal=True, window=32768),  # zamba2-7b
+              dict(B=1, S=300, H=32, KV=32, hd=112, causal=True, window=64)]
+    worst = flash_sweep(torch, cases, seed=200)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    timed = {"qwen3": flash_time(torch, flush, "qwen3-0.6b", 1, 512, 16, 8, 128, 0),
+             "zamba2": flash_time(torch, flush, "zamba2-7b", 1, 512, 32, 32, 112, 32768)}
+    del flush
+    return timed, worst
+
+
 def _close(torch, name, dt_name, case, pairs):
     """Hold (label, kernel output, plain output) pairs to TOL; returns the
     largest absolute error."""
@@ -327,92 +445,221 @@ def mamba2_kernel_phase(torch):
 
 def counters():
     """The launch counters of every kernel, by name."""
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd
     from repro_torch.kernels.paged_decode.ops import paged_decode_attention
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 
     return {"paged_decode": paged_decode_attention.launches,
             "paged_decode_merge": paged_decode_attention.merge_launches,
+            "flash_prefill": flash_prefill.launches,
             "rwkv6_scan": rwkv6_scan.launches, "mamba2_ssd": mamba2_ssd.launches}
 
 
 def zero_counters() -> None:
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd
     from repro_torch.kernels.paged_decode.ops import paged_decode_attention
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 
     paged_decode_attention.launches = 0
     paged_decode_attention.merge_launches = 0
+    flash_prefill.launches = 0
     rwkv6_scan.launches = 0
     mamba2_ssd.launches = 0
 
 
-def engine_config(device_pages, host_pages):
+def engine_config(device_pages, host_pages, *, pipeline=False):
     from repro_torch.config import EngineConfig
 
     return EngineConfig(device_pool_pages=device_pages, host_pool_pages=host_pages,
-                        policy="neo", pipeline=False, hw_profile="h100_sxm", seed=0)
+                        policy="neo", pipeline=pipeline, hw_profile="h100_sxm", seed=0)
 
 
-def make_trace(n, vocab, seed=0):
+def make_trace(n, vocab, seed=0, *, rate=0.0, output_len=32):
+    """n requests, prompts uniform in [256, 768], all at t = 0 or, with a
+    rate, at Poisson arrival times."""
     import numpy as np
 
-    from repro_torch.serving.traces import TraceRequest
+    from repro_torch.serving.traces import TraceRequest, poisson_arrivals
 
     rng = np.random.default_rng(seed)
-    trace = [TraceRequest(0.0, int(rng.integers(256, 769)), 32) for _ in range(n)]
+    arrivals = poisson_arrivals(n, rate, rng)
+    trace = [TraceRequest(float(t), int(rng.integers(256, 769)), output_len)
+             for t in arrivals]
     for t in trace:
         t.materialise(rng, vocab)
     return trace
 
 
-def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512):
-    """Serve ``n`` requests through the port's main path; returns the
-    engine, the trace, the metrics, the attention and merge kernels'
-    launches, and the decode calls."""
+def drive(engine, trace, runner):
+    """Run ``trace`` through ``runner`` with every launch counter zeroed just
+    before and read just after, counting the executor's calls: the serial /
+    batch-0 decode passes (each launches the paged decode kernel once per
+    layer), the host lanes (no kernel) and the prefills (each launches the
+    flash prefill kernel once per layer), with each prefill's (B, S)."""
+    ex = engine.executor
+    calls = {"decode": 0, "decode_batch0": 0, "prefill": 0}
+    shapes = []
+
+    def counted(name):
+        fn = getattr(ex, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            if name == "prefill":
+                shapes.append((len(a[0]), max(r.prefill_len for r in a[0])))
+            return fn(*a, **k)
+        return wrapped
+
+    for name in calls:
+        setattr(ex, name, counted(name))
+    zero_counters()
+    metrics = runner(engine, trace)
+    launched = counters()
+    return metrics, launched, calls, shapes
+
+
+def check_paged_launches(cfg, launched, calls, label):
+    """paged_decode = layers x decode passes, flash_prefill = layers x
+    prefills, no scan kernel; the merge kernel follows some attention
+    launches (the rows are long enough to split)."""
+    L = cfg.num_layers
+    passes = calls["decode"] + calls["decode_batch0"]
+    want = {"paged_decode": L * passes, "flash_prefill": L * calls["prefill"],
+            "rwkv6_scan": 0, "mamba2_ssd": 0}
+    got = {k: launched[k] for k in want}
+    if got != want or passes == 0 or calls["prefill"] == 0:
+        raise AssertionError(f"{label}: launches {got} != {want} ({L} layers x {calls})")
+    if not 0 < launched["paged_decode_merge"] <= launched["paged_decode"]:
+        raise AssertionError(f"{label}: merge kernel launches {launched['paged_decode_merge']} "
+                             f"not in (0, {launched['paged_decode']}]")
+
+
+def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512, pipeline=False):
+    """Serve ``n`` requests through the paged path (serial, or pipelined)
+    with ``run_trace``; returns (engine, trace, metrics, launches, calls,
+    prefill shapes)."""
     from repro_torch.core.engine import NeoEngine
     from repro_torch.core.request import RequestState
     from repro_torch.launch.serve import run_trace
 
-    engine = NeoEngine(cfg, engine_config(device_pages, host_pages), device=device)
+    engine = NeoEngine(cfg, engine_config(device_pages, host_pages, pipeline=pipeline),
+                       device=device)
     trace = make_trace(n, cfg.vocab_size)
-    calls = [0]
-    decode = engine.executor.decode
-
-    def counted(*a, **k):
-        calls[0] += 1
-        return decode(*a, **k)
-
-    engine.executor.decode = counted
-    zero_counters()
-    metrics = run_trace(engine, trace, vocab=cfg.vocab_size)
-    launched = counters()
+    label = "pipelined" if pipeline else "serial"
+    m, launched, calls, shapes = drive(
+        engine, trace, lambda e, t: run_trace(e, t, vocab=cfg.vocab_size))
     engine.close()
-    launches, merges = launched["paged_decode"], launched["paged_decode_merge"]
-    if launched["rwkv6_scan"] or launched["mamba2_ssd"]:
-        raise AssertionError(f"the paged path launched a scan kernel: {launched}")
+    check_paged_launches(cfg, launched, calls, label)
     done = [r for r in engine.requests.values() if r.state == RequestState.FINISHED]
     if len(done) != n:
-        raise AssertionError(f"only {len(done)}/{n} requests finished")
+        raise AssertionError(f"{label}: only {len(done)}/{n} requests finished")
     s = engine.stats
     if not (s.offloaded_decodes > 0 and s.device_decodes > 0 and engine.pool.swap_bytes > 0):
-        raise AssertionError(f"main path did not split: offloaded={s.offloaded_decodes} "
-                             f"device={s.device_decodes} swap_bytes={engine.pool.swap_bytes}")
-    return engine, trace, metrics, launches, merges, calls[0]
+        raise AssertionError(f"{label}: main path did not split: offloaded="
+                             f"{s.offloaded_decodes} device={s.device_decodes} "
+                             f"swap_bytes={engine.pool.swap_bytes}")
+    return engine, trace, m, launched, calls, shapes
 
 
-def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, chunk=8):
+def serve_summary(cfg, engine, m, launched, calls, card):
+    s = engine.stats
+    return {
+        "model": cfg.name, "dtype": cfg.activation_dtype, "layers": cfg.num_layers,
+        "pipeline": engine.engine_cfg.pipeline, "requests": len(m.finished),
+        "output_tok_s": m.throughput, "total_tok_s": m.token_throughput,
+        "ttft_s": m.ttft(), "tpot_s": m.tpot(), "makespan_s": m.makespan,
+        "iterations": s.iterations, "offloaded_decodes": s.offloaded_decodes,
+        "device_decodes": s.device_decodes, "swap_bytes": engine.pool.swap_bytes,
+        "executor_calls": calls, "kernel_launches": launched, "modes": s.mode_counts,
+        "host_attention_busy_s": s.host_busy_time, "device_busy_s": s.device_busy_time,
+        "plan_busy_s": s.plan_busy_time, "lane_busy_s": s.lane_busy_time,
+        "overlap_s": s.pipeline_overlap_time, "ideal_overlap_s": s.pipeline_ideal_time,
+        "bubble_fraction": s.bubble_fraction, "pipelined_steps": s.pipelined_steps,
+        "borrowed_lane_steps": s.borrowed_lane_steps,
+        "microbatched_steps": s.microbatched_steps, "serial_b1_steps": s.serial_b1_steps,
+        "lane_counts": {str(k): v for k, v in sorted(s.lane_counts.items())},
+        "swap_out_MB": s.swap_out_bytes / 1e6, "swap_in_MB": s.swap_in_bytes / 1e6,
+        "swap_hidden_MB": s.swap_hidden_bytes / 1e6, "swap_wait_s": s.swap_wait_time,
+        "planahead_hits": s.planahead_hits, "planahead_replans": s.planahead_replans,
+        "planahead_skipped": s.planahead_skipped,
+        "planahead_hidden_s": s.planahead_hidden_time, "card": card,
+    }
+
+
+def pipelined_phase(cfg, device, serial_engine, card):
+    """The serial phase's trace and pools through the pipelined engine
+    (async swaps, host lanes, plan-ahead, micro-batching); its tokens are
+    compared with the serial phase's (a bitwise claim, reported)."""
+    engine, trace, m, launched, calls, _ = serve_phase(cfg, device, pipeline=True)
+    s = engine.stats
+    if s.pipelined_steps <= 0:
+        raise AssertionError(f"pipelined phase: no pipelined step ({s.mode_counts})")
+    if s.swap_out_bytes + s.swap_in_bytes <= 0:
+        raise AssertionError("pipelined phase: no swap went through the TransferEngine")
+    if s.planahead_hits <= 0:
+        raise AssertionError("pipelined phase: plan-ahead never adopted a plan")
+    same = total = 0
+    for rid, req in engine.requests.items():
+        ser = serial_engine.requests[rid].out_tokens
+        total += len(req.out_tokens)
+        same += sum(a == b for a, b in zip(req.out_tokens, ser))
+    summary = serve_summary(cfg, engine, m, launched, calls, card)
+    summary.update(tokens_equal_to_serial=same, tokens=total)
+    return engine, summary
+
+
+def online_phase(cfg, device, card, *, n=8, rate=4.0):
+    """A short open-loop run: ``run_online`` with Poisson arrivals on the
+    pipelined engine; every request finishes and plan-ahead adopts plans."""
+    from repro_torch.core.engine import NeoEngine
+    from repro_torch.core.request import RequestState
+    from repro_torch.launch.serve import run_online
+
+    engine = NeoEngine(cfg, engine_config(64, 512, pipeline=True), device=device)
+    trace = make_trace(n, cfg.vocab_size, seed=1, rate=rate, output_len=16)
+    streamed = {}
+    m, launched, calls, _ = drive(engine, trace, lambda e, t: run_online(
+        e, t, vocab=cfg.vocab_size, on_token=lambda rid, tok: streamed.setdefault(
+            rid, []).append(tok)))
+    engine.close()
+    check_paged_launches(cfg, launched, calls, "open loop")
+    done = [r for r in engine.requests.values() if r.state == RequestState.FINISHED]
+    if len(done) != n or len(m.finished) != n:
+        raise AssertionError(f"open loop: only {len(done)}/{n} requests finished")
+    if streamed != {rid: list(r.out_tokens) for rid, r in engine.requests.items()}:
+        raise AssertionError("open loop: streamed tokens differ from the final tokens")
+    if engine.stats.planahead_hits <= 0:
+        raise AssertionError("open loop: plan-ahead never adopted a plan")
+    summary = serve_summary(cfg, engine, m, launched, calls, card)
+    summary.update(arrivals="poisson", rate_rps=rate,
+                   last_arrival_s=max(t.arrival_time for t in trace),
+                   ttft_p99_s=m.ttft(99), tpot_p99_s=m.tpot(99))
+    del engine
+    return summary
+
+
+def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, chunk=8,
+                 pipeline=False):
     """fp32 engine on the same prompts; every emitted token must be the
     oracle's argmax or within NEAR_TIE of its max logit.  The oracle is the
     engine's own DenseLM run as a plain contiguous prefill over
-    prompt + out[:i] (rows of one request batched with true_lens)."""
+    prompt + out[:i] (rows of one request batched with true_lens), with the
+    plain attention, never the flash prefill kernel.  The pipelined engine
+    must put host rows in batch-1 lanes."""
     from repro_torch.core.engine import NeoEngine
 
     cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
-    engine = NeoEngine(cfg32, engine_config(device_pages, host_pages), device=device)
+    engine = NeoEngine(cfg32, engine_config(device_pages, host_pages, pipeline=pipeline),
+                       device=device)
     rids = [engine.submit(t.prompt, t.output_len) for t in trace]
     outs = engine.run_until_done(10_000)
     engine.close()
+    s = engine.stats
+    if pipeline and not (s.pipelined_steps > 0 and sum(s.lane_counts.values()) > 0):
+        raise AssertionError(f"pipelined parity: no host rows in batch-1 lanes "
+                             f"(lane_counts {s.lane_counts}, {s.pipelined_steps} steps)")
     exact = ties = total = 0
     worst_gap = 0.0
     for rid, t in zip(rids, trace):
@@ -427,7 +674,7 @@ def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, 
             for j, r in enumerate(rows):
                 tok[j, : len(r)] = torch.tensor(r)
             lens = torch.tensor([len(r) for r in rows], dtype=torch.int32)
-            logits, _ = engine.model.prefill(tok, true_lens=lens)
+            logits, _ = engine.model.prefill(tok, true_lens=lens, impl="plain")
             for j in range(len(rows)):
                 want = int(logits[j].argmax())
                 got = out[c0 + j]
@@ -442,9 +689,11 @@ def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, 
                     raise AssertionError(
                         f"parity: rid {rid} token {c0 + j}: engine {got}, oracle {want}, "
                         f"logit gap {gap:.3e} > {NEAR_TIE}")
-    return dict(tokens=total, exact=exact, near_ties=ties, worst_tie_gap=worst_gap,
-                offloaded_decodes=engine.stats.offloaded_decodes,
-                device_decodes=engine.stats.device_decodes)
+    return dict(model=cfg.name, pipeline=pipeline, tokens=total, exact=exact,
+                near_ties=ties, worst_tie_gap=worst_gap,
+                offloaded_decodes=s.offloaded_decodes, device_decodes=s.device_decodes,
+                pipelined_steps=s.pipelined_steps,
+                lane_counts={str(k): v for k, v in sorted(s.lane_counts.items())})
 
 
 # ---------------------------------------------------------------------------
@@ -497,9 +746,12 @@ def ssm_serve_phase(torch, cfg, device, *, n=8):
     name = SSM_KERNEL[cfg.family]
     want = {k: 0 for k in launched}
     want[name] = cfg.num_layers * calls[0]
+    if cfg.family == "hybrid":  # one shared-attention prefill per application
+        want["flash_prefill"] = engine.model.n_attn_apps * calls[0]
     if launched != want or calls[0] != n:
         raise AssertionError(f"{cfg.name}: launches {launched} != {want} "
-                             f"({cfg.num_layers} x {calls[0]} prefills of {n} requests)")
+                             f"({cfg.num_layers} blocks x {calls[0]} prefills of {n} "
+                             "requests)")
     s = engine.stats
     if cfg.family == "ssm" and (engine.scheduler.policy != "gpu_only"
                                 or set(s.mode_counts) != {"gpu_only"}):
@@ -526,9 +778,9 @@ def ssm_serve_phase(torch, cfg, device, *, n=8):
 def ssm_parity_phase(torch, cfg, device, trace):
     """The same requests in fp32 (TF32 off); every emitted token must be the
     oracle's argmax or within NEAR_TIE of its max logit.  The oracle is the
-    engine's own model: a prefill of the prompt with the plain scan, then
-    teacher-forced decode steps over the emitted tokens, one request at a
-    time."""
+    engine's own model: a prefill of the prompt with the plain scan (and,
+    for zamba2, the plain shared attention), then teacher-forced decode
+    steps over the emitted tokens, one request at a time."""
     from repro_torch.core.engine import NeoEngine
 
     cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
@@ -585,9 +837,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.mamba2_ssd.ops import SOURCE as SSD_SOURCE
-    from repro_torch.kernels.paged_decode.ops import SOURCE as PAGED_SOURCE
-    from repro_torch.kernels.rwkv6_scan.ops import SOURCE as RWKV6_SOURCE
 
     # -- phase 1: setup ----------------------------------------------------
     card = card_line()
@@ -596,7 +845,7 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    logs = _build.build_all([PAGED_SOURCE, RWKV6_SOURCE, SSD_SOURCE])
+    logs = _build.build_all()
     built = [src.name for src, text in logs.items() if text]
     log(f"[setup] built {', '.join(built) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, concurrently)")
@@ -605,37 +854,46 @@ def main() -> int:
             if ("Compiling entry function" in line or "registers" in line
                     or ("spill" in line and " 0 bytes spill stores" not in line)):
                 log(f"[setup] {src.name}: {line.strip()}")
+    from repro_torch.kernels.flash_prefill.ops import smem_bytes as flash_smem
+    from repro_torch.kernels.mamba2_ssd.ops import SOURCE as SSD_SOURCE
     from repro_torch.kernels.mamba2_ssd.ops import smem_bytes
 
     log(f"[setup] {SSD_SOURCE.name}: dynamic shared memory per block "
         f"{smem_bytes(64)} bytes at N=64 (opted in above the 48 KiB static limit)")
+    log(f"[setup] flash_prefill.cu: dynamic shared memory per block "
+        f"{flash_smem(128, torch.bfloat16)} bytes (bf16) / "
+        f"{flash_smem(128, torch.float32)} bytes (fp32) at hd=128 (opted in)")
 
     # -- phase 2: kernels ----------------------------------------------------
     timed, worst = kernel_phase(torch)
+    flash_t, flash_worst = flash_kernel_phase(torch)
     rwkv6_t, _ = rwkv6_kernel_phase(torch)
     ssd_t, _ = mamba2_kernel_phase(torch)
 
     # -- phase 3: serve each path --------------------------------------------
     cfg = get_config("qwen3-0.6b")
-    engine, trace, m, launches, merges, calls = serve_phase(cfg, "cuda")
-    if launches != cfg.num_layers * calls or calls == 0:
-        raise AssertionError(f"kernel launches {launches} != {cfg.num_layers} x "
-                             f"{calls} decode calls")
-    if not 0 < merges <= launches:  # the main path's rows are long enough to split
-        raise AssertionError(f"merge kernel launches {merges} not in (0, {launches}]")
-    s = engine.stats
-    log(json.dumps({"serve": {
-        "model": cfg.name, "dtype": cfg.activation_dtype, "layers": cfg.num_layers,
-        "requests": len(m.finished), "output_tok_s": m.throughput,
-        "total_tok_s": m.token_throughput, "ttft_s": m.ttft(), "tpot_s": m.tpot(),
-        "makespan_s": m.makespan, "iterations": s.iterations,
-        "offloaded_decodes": s.offloaded_decodes, "device_decodes": s.device_decodes,
-        "swap_bytes": engine.pool.swap_bytes, "decode_calls": calls,
-        "kernel_launches": launches, "merge_kernel_launches": merges,
-        "modes": s.mode_counts,
-        "host_attention_busy_s": s.host_busy_time, "plan_busy_s": s.plan_busy_time,
-        "lane_busy_s": s.lane_busy_time, "card": card}}))
-    del engine
+    serial, trace, m, launched, calls, shapes = serve_phase(cfg, "cuda")
+    log(json.dumps({"serve": {**serve_summary(cfg, serial, m, launched, calls, card),
+                              "prefill_shapes": shapes}}))
+    # flash_prefill at the padded batch of the serve phase's first prefill call:
+    # checked in fp32 and bf16, then timed
+    B0, S0 = shapes[0]
+    serve_case = dict(B=B0, S=S0, H=cfg.num_heads, KV=cfg.num_kv_heads, hd=cfg.head_dim,
+                      causal=True, window=0)
+    for dt_name, err in flash_sweep(torch, [serve_case], seed=300).items():
+        flash_worst[dt_name] = max(flash_worst[dt_name], err)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    flash_t["serve"] = flash_time(torch, flush, "first serve prefill", B0, S0,
+                                  cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0)
+    del flush
+    pipe, pipe_summary = pipelined_phase(cfg, "cuda", serial, card)
+    log(json.dumps({"serve": pipe_summary}))
+    log(f"[serve] pipelined vs serial bf16 tokens: {pipe_summary['tokens_equal_to_serial']}"
+        f" of {pipe_summary['tokens']} equal (a bitwise claim, reported, not a gate)")
+    pipe_launched = pipe_summary["kernel_launches"]
+    del serial, pipe
+    torch.cuda.empty_cache()
+    log(json.dumps({"serve": online_phase(cfg, "cuda", card)}))
     torch.cuda.empty_cache()
     ssm = {}
     for arch in ("rwkv6-7b", "zamba2-7b"):
@@ -644,13 +902,15 @@ def main() -> int:
         log(json.dumps({"serve": {**summary, "card": card}}))
 
     main_t = timed["main"]
+    q_t = flash_t["qwen3"]
     log(json.dumps({"kernels": [{
         "name": "paged_decode",
         "route": "cuda",
         "source": "src/repro_torch/kernels/paged_decode/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_decode/kernel.py:87",
-        "launches": launches,
-        "merge_launches": merges,
+        "launches": pipe_launched["paged_decode"],
+        "merge_launches": pipe_launched["paged_decode_merge"],
+        "launches_serial_path": launched["paged_decode"],
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -660,6 +920,24 @@ def main() -> int:
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
         "shape": "B=8 H=16 KV=8 hd=128 page=16 bf16 sum(lens)=%d" % main_t["sum_lens"],
+    }, {
+        "name": "flash_prefill",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/flash_prefill/kernel.py:105",
+        "launches": pipe_launched["flash_prefill"],
+        "launches_serial_path": launched["flash_prefill"],
+        "launches_zamba2": ssm["zamba2-7b"][0]["kernel_launches"]["flash_prefill"],
+        "max_abs_err": q_t["max_abs_err"],
+        "max_abs_err_sweep": flash_worst,
+        "ms": q_t["ms"],
+        "kernel_ms": q_t["ms"],
+        "plain_ms": q_t["plain_ms"],
+        "bound_ms": q_t["bound_ms"],
+        "bound_by": q_t["bound_by"],
+        "library_ms": q_t["library_ms"],
+        "shape": q_t["shape"],
+        "other_shapes": {k: v for k, v in flash_t.items() if k != "qwen3"},
     }, scan_entry("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",
                   ssm["rwkv6-7b"][0]["kernel_launches"]["rwkv6_scan"], rwkv6_t,
@@ -670,8 +948,10 @@ def main() -> int:
                    "B=1 T=512 H=112 P=64 N=64 bf16 x/B/C, f32 dt/A/D/state")]}))
 
     # -- phase 4: parity on the card -----------------------------------------
-    par = parity_phase(torch, cfg, "cuda", trace)
-    log(json.dumps({"parity": par}))
+    for pipeline in (False, True):
+        log(json.dumps({"parity": parity_phase(torch, cfg, "cuda", trace,
+                                               pipeline=pipeline)}))
+        torch.cuda.empty_cache()
     for arch, (_, ssm_trace) in ssm.items():
         log(json.dumps({"parity": ssm_parity_phase(torch, get_config(arch), "cuda",
                                                    ssm_trace)}))

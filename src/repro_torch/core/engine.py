@@ -1,31 +1,43 @@
-"""NeoEngine — the online serving engine (continuous batching + NEO offload),
-serial path.
+"""NeoEngine — the online serving engine (continuous batching + NEO offload).
 
 The engine is paged or contiguous as the reference decides
 (``cfg.family in PAGED_FAMILIES and cfg.supports_offload``).  On the paged
-path (dense family) one :meth:`NeoEngine.step` is one inference iteration:
+path (dense family) one :meth:`NeoEngine.step` is one inference iteration in
+explicit **plan → launch → join** phases:
 
 * **plan** — the load-aware scheduler builds the two-batch asymmetric plan
   (which decode rows attend on the device, which on the host; swaps;
-  preemptions; prefills);
-* **launch** — recompute preemptions drop KV, swaps copy whole requests
-  between the pools inline (:meth:`DualPool.swap_request`), queue moves
-  commit, and pages are allocated for prefills and growing decode rows;
-* **execute** — the prefill sub-batch, then one decode pass over all rows
-  (:meth:`PagedExecutor.decode`: device rows through the paged decode
-  kernel, host rows through host attention), and greedy sampling in plan
-  order.
+  preemptions; prefills), or adopts the plan a planner thread built for it
+  while the previous iteration ran (plan-ahead);
+* **launch** — recompute preemptions drop KV, swaps start on the
+  :class:`TransferEngine`'s copy streams (page accounting moves now),
+  queue moves commit, the next plan-ahead starts, and pages are allocated
+  for prefills and growing decode rows;
+* **join** — the plan executes as a **unified lane plan**: one optional
+  device lane (the prefill sub-batch, then batch-0's decode pass, on the
+  engine thread and its own CUDA stream) plus K >= 0 host lanes (host-only
+  decode passes on the executor's lane threads, each on its own stream),
+  where the scheduler's ``lane_splits`` partition batch-1.  Swap-outs join
+  lane-scoped on the lane that decodes them, right before its host attention
+  reads the pages; swap-ins join on the engine thread before batch-0 reads
+  the pool; everything else joins at the end-of-step :meth:`drain`.  Logits
+  join and tokens are sampled in plan order, so greedy decode emits the
+  serial path's tokens.
+
+With ``pipeline=False`` (or a "serial"-mode plan) swaps copy inline
+(:meth:`DualPool.swap_request`) and one decode pass covers all rows.  Every
+device-lane window ends at a synchronising copy of its logits to the host,
+so the overlap counters of :class:`EngineStats` measure work, not launches.
 
 On the contiguous path (ssm and hybrid families, device-only) the scheduler
 sees one "page" per slot of :class:`ContiguousExecutor`; a step prefills its
 new requests one at a time into free slots, then runs one decode over all
-slots in which only the running rows' slots advance.
+slots in which only the running rows' slots advance.  ``pipeline`` does not
+apply there, as in the reference.
 
-This is the reference engine's ``pipeline=False`` path.  Its pipelined
-execution (async swaps, concurrent host lanes, plan-ahead) is ROADMAP P7;
-tensor parallelism P13, the prefix cache P9, speculative decoding P10 and
-tracing P8.  Building the engine with any of those switched on raises
-``NotImplementedError`` rather than running the serial path in its place.
+Tensor parallelism (ROADMAP P13), the prefix cache (P9), speculative
+decoding (P10) and tracing (P8) are not ported: building the engine with any
+of them switched on raises ``NotImplementedError``.
 
 Fault tolerance: every accepted request is journaled (prompt + sampling
 params + emitted tokens); :meth:`export_journal` / :meth:`replay_journal`
@@ -34,7 +46,10 @@ implement prefill-replay recovery.
 
 from __future__ import annotations
 
+import copy
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -47,8 +62,9 @@ from repro_torch.core.host_attention import HostAttention
 from repro_torch.core.kv_cache import DualPool
 from repro_torch.core.perfmodel import PerfModel
 from repro_torch.core.request import Request, RequestState
-from repro_torch.core.scheduler import BatchPlan, NeoScheduler, PoolView
-from repro_torch.device import resolve_device
+from repro_torch.core.scheduler import BatchPlan, NeoScheduler, PoolView, SchedQueues
+from repro_torch.core.transfer import WAIT_TIMEOUT_S, TransferEngine
+from repro_torch.device import new_stream, on_stream, resolve_device
 from repro_torch.models.api import get_model
 
 PAGED_FAMILIES = ("dense", "moe", "vlm")
@@ -56,9 +72,8 @@ PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 @dataclass
 class EngineStats:
-    """The reference's ``EngineStats`` counters that the serial path updates
-    (the pipelining, lane, plan-ahead and speculation counters arrive with
-    those features)."""
+    """The reference's ``EngineStats`` (without the speculation counters,
+    ROADMAP P10)."""
 
     iterations: int = 0
     tokens_out: int = 0
@@ -68,11 +83,41 @@ class EngineStats:
     device_decodes: int = 0
     wall_time: float = 0.0
     host_busy_time: float = 0.0
-    # prefill + decode dispatch wall time (host attention runs inside it)
+    # -- measured pipeline overlap (Fig. 5, realized) ----------------------
+    # device_busy_time: wall time of prefill + batch-0 dispatches (the lane
+    # batch-1 is supposed to hide under).  pipeline_overlap_time: measured
+    # lane-busy time beyond the union of the lanes' windows;
+    # pipeline_ideal_time: everything but the longest lane (perfect packing
+    # hides it all).  Serialized batch-1-only steps add ideal time with no
+    # overlap, so bubble_fraction stays honest when one lane is empty.
     device_busy_time: float = 0.0
-    # per-lane dispatch wall time: "prefill" and "serial" (the decode pass)
+    pipeline_overlap_time: float = 0.0
+    pipeline_ideal_time: float = 0.0
+    pipelined_steps: int = 0
+    # -- unified lane plans (K host lanes + optional device lane) ----------
+    microbatched_steps: int = 0  # batch-1-only steps split into >= 2 lanes
+    serial_b1_steps: int = 0  # batch-1-only steps that ran inline (no split)
+    # mixed plans (short decode-only device lane) that BORROWED >= 2 host
+    # lanes for their surplus batch-1 rows instead of serializing them
+    borrowed_lane_steps: int = 0
+    # histogram: number of host lanes K -> steps executed with that K
+    lane_counts: Dict[int, int] = field(default_factory=dict)
+    # per-lane dispatch wall time: "prefill" / "batch0" (device lane),
+    # "host0".."hostK-1" (host lanes) and "serial" (the pipeline=False pass)
     lane_busy_time: Dict[str, float] = field(default_factory=dict)
+    # -- transfer engine mirror (async swaps) ------------------------------
+    swap_out_bytes: int = 0
+    swap_in_bytes: int = 0
+    swap_hidden_bytes: int = 0  # copy bytes overlapped by the dispatch window
+    swap_wait_time: float = 0.0  # time the compute lanes blocked on joins
+    # -- plan-ahead scheduling ---------------------------------------------
+    planahead_hits: int = 0
+    planahead_replans: int = 0
+    planahead_skipped: int = 0
+    # critical-path planning wall time (fresh plans + harvest waits) vs the
+    # planner-thread time hidden under lane execution by accepted plans
     plan_busy_time: float = 0.0
+    planahead_hidden_time: float = 0.0
     # open-loop admission control: arrivals bounced by offer()
     rejected_requests: int = 0
     plans: List[str] = field(default_factory=list)
@@ -85,11 +130,25 @@ class EngineStats:
     def lane_add(self, lane: str, dt: float) -> None:
         self.lane_busy_time[lane] = self.lane_busy_time.get(lane, 0.0) + dt
 
+    @property
+    def bubble_fraction(self) -> float:
+        """1 - realized/ideal overlap (0 = no bubble), clamped to [0, 1];
+        0.0 with no hideable work at all."""
+        if self.pipeline_ideal_time <= 0:
+            return 0.0
+        return min(1.0, max(
+            0.0, 1.0 - self.pipeline_overlap_time / self.pipeline_ideal_time))
+
+    @property
+    def host_device_busy_ratio(self) -> float:
+        """Host-attention busy time over device-lane busy time: +inf for a
+        host-only workload, 0.0 when fully idle."""
+        if self.device_busy_time <= 0:
+            return float("inf") if self.host_busy_time > 0 else 0.0
+        return self.host_busy_time / self.device_busy_time
+
 
 def _unsupported(engine_cfg: EngineConfig) -> Optional[str]:
-    if engine_cfg.pipeline:
-        return ("pipelined execution is not ported yet (ROADMAP P7); "
-                "build the engine with pipeline=False")
     if engine_cfg.tp > 1:
         return "tensor-parallel serving is not ported yet (ROADMAP P13)"
     if engine_cfg.prefix_cache:
@@ -99,6 +158,20 @@ def _unsupported(engine_cfg: EngineConfig) -> Optional[str]:
     if engine_cfg.tracing:
         return "engine tracing is not ported yet (ROADMAP P8)"
     return None
+
+
+def _union(windows: List[Tuple[float, float]]) -> float:
+    """Length of the union of [start, end] windows."""
+    merged = sorted(windows)
+    union = 0.0
+    cur_s, cur_e = merged[0]
+    for s, e in merged[1:]:
+        if s > cur_e:
+            union += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return union + cur_e - cur_s
 
 
 class NeoEngine:
@@ -134,6 +207,10 @@ class NeoEngine:
         self.perf = PerfModel.for_arch(cfg, engine_cfg.hw_profile, engine_cfg.ewma_alpha)
         self.scheduler = NeoScheduler(cfg, engine_cfg, self.perf)
         self.paged = cfg.family in PAGED_FAMILIES and cfg.supports_offload
+        # the device lane's own stream (the legacy default stream would
+        # serialise the host lanes' copies behind it)
+        self._stream = new_stream(self.device)
+        self.transfer: Optional[TransferEngine] = None
         if self.paged:
             self.pool = DualPool(cfg, engine_cfg.device_pool_pages,
                                  engine_cfg.host_pool_pages, device=self.device)
@@ -143,7 +220,9 @@ class NeoEngine:
             self.host_attn = HostAttention(cfg, self.pool.host.k.numpy(),
                                            self.pool.host.v.numpy(),
                                            threads=engine_cfg.host_threads)
-            self.executor = PagedExecutor(self.model, self.pool, self.host_attn)
+            self.executor = PagedExecutor(self.model, self.pool, self.host_attn,
+                                          host_lanes=engine_cfg.max_host_lanes)
+            self.transfer = TransferEngine(self.pool, compute_stream=self._stream)
             self._page = cfg.kv_block_size
         else:
             self.executor = ContiguousExecutor(
@@ -152,12 +231,20 @@ class NeoEngine:
             self._page = self.executor.capacity  # 1 "page" == 1 slot for the scheduler
             self.pool = None
             self.host_attn = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # weights and pools are in place
         self._rng = np.random.default_rng(engine_cfg.seed)
         self._next_rid = 0
         self.requests: Dict[int, Request] = {}
         self.stats = EngineStats()
         self._journal: List[Dict[str, Any]] = []
         self.clock = 0.0  # virtual clock (arrival bookkeeping in offline runs)
+        # plan-ahead: one planner thread (started lazily) builds the NEXT
+        # iteration's plan against a shadow of the post-step state while
+        # this iteration's lanes run; _spec holds the speculation in flight
+        # as (predicted signature, shadow queues, shadow requests, future)
+        self._planner: Optional[ThreadPoolExecutor] = None
+        self._spec: Optional[Tuple[Any, SchedQueues, Dict[int, Request], Any]] = None
 
     # ------------------------------------------------------------------
     # submission
@@ -209,6 +296,29 @@ class NeoEngine:
         return self.submit(prompt, max_new_tokens, arrival_time=arrival_time,
                            eos_token=eos_token)
 
+    def cancel(self, rid: int) -> bool:
+        """Mid-flight departure (client disconnect / streaming abort): free
+        the request's KV, drop it from the scheduler queues, and mark it
+        ABORTED.  Tokens already streamed stay with the caller.  Call
+        between steps (transfers drain at the end of every step, so no copy
+        in flight references the pages)."""
+        req = self.requests.get(rid)
+        if req is None or req.state in (RequestState.FINISHED, RequestState.ABORTED):
+            return False
+        if req.pages:
+            if self.paged:
+                self.pool.pool(req.location).free(req.pages)
+            else:
+                self.executor.free_slot(req.pages[0])
+            req.pages = []
+        sched = self.scheduler
+        for q in (sched.waitq, sched.gpu_runq, sched.cpu_runq):
+            if req in q:
+                q.remove(req)
+        req.state = RequestState.ABORTED
+        req.finish_time = self.clock
+        return True
+
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
@@ -258,19 +368,227 @@ class NeoEngine:
         req.pages = []
 
     # ------------------------------------------------------------------
+    # plan-ahead scheduling
+    # ------------------------------------------------------------------
+    # While iteration N's lanes run, a planner thread builds iteration N+1's
+    # plan against a SHADOW of the predicted post-step queues and pool
+    # counters.  At step N+1 a signature over every plan input (per-request
+    # scheduling fields plus the free-page view) decides: a match adopts the
+    # plan (remapped shadow -> real), a mismatch (arrival, cancel, eos
+    # finish, anything the prediction could not see) replans.  Prediction
+    # accuracy only moves the hit rate, never the tokens: per-row compute
+    # does not depend on the plan's shape.
+
+    @staticmethod
+    def _sig_req(r: Request) -> tuple:
+        return (r.rid, r.state.value, r.location, len(r.prompt),
+                len(r.out_tokens), len(r.pages), r.skipped, r.cached_len,
+                r.prefix_loc, r.max_new_tokens)
+
+    @staticmethod
+    def _sig_of(waitq, gpu_runq, cpu_runq, dev_free: int, host_free: int) -> tuple:
+        f = NeoEngine._sig_req
+        return (tuple(f(r) for r in waitq), tuple(f(r) for r in gpu_runq),
+                tuple(f(r) for r in cpu_runq), dev_free, host_free)
+
+    def _signature(self) -> tuple:
+        pv = self._pool_view()
+        s = self.scheduler
+        return self._sig_of(s.waitq, s.gpu_runq, s.cpu_runq, pv.device_free, pv.host_free)
+
+    def _build_shadow(self, plan: BatchPlan):
+        """Predict the post-step scheduler/pool state for ``plan`` (right
+        after commit, before dispatch) and clone it into shadows the planner
+        thread can mutate.  Returns ``(state, shadows, pools_pred,
+        sig_pred)``, or None when the prediction left the scheduler's
+        budget."""
+        page = self._page
+        sched = self.scheduler
+        # pool counters at the end of the step: swaps' page accounting moved
+        # at launch, except swap-in source pages, which return to the host
+        # pool at join (drained by the step barrier)
+        dev_raw = self.pool.device.free_pages
+        host_raw = self.pool.host.free_pages + sum(len(r.pages) for r in plan.swap_in)
+
+        def _running(rs: List[Request]) -> List[Request]:
+            return [r for r in rs
+                    if r.state == RequestState.RUNNING and r not in plan.prefill]
+
+        rows = (_running(plan.decode_gpu) + _running(plan.decode_cpu0)
+                + _running(plan.decode_cpu1))
+        shadows: Dict[int, Request] = {}
+
+        def clone(r: Request) -> Request:
+            sr = copy.copy(r)
+            sr.out_tokens = list(r.out_tokens)
+            sr.pages = list(r.pages)
+            shadows[r.rid] = sr
+            return sr
+
+        st = SchedQueues(
+            waitq=deque(clone(r) for r in sched.waitq),
+            gpu_runq=[clone(r) for r in sched.gpu_runq],
+            cpu_runq=[clone(r) for r in sched.cpu_runq],
+        )
+        # decode-row page growth (the dispatch predicate on the pre-emission
+        # kv_len) + token emission; -1 never equals an eos token, so a real
+        # eos finish falsifies the signature instead of matching it
+        for r in rows:
+            sr = shadows[r.rid]
+            if r.kv_len % page == 0 and r.kv_len // page >= len(r.pages):
+                if r.location == "cpu":
+                    host_raw -= 1
+                else:
+                    dev_raw -= 1
+                sr.pages.append(-1)
+            sr.out_tokens.append(-1)
+        # prefill allocation + first-token emission (replayed prefills
+        # re-derive their last token and do not emit)
+        for r in plan.prefill:
+            sr = shadows[r.rid]
+            npages = -(-r.prefill_len // page)
+            if r in plan.prefill_to_host:
+                host_raw -= npages
+            else:
+                dev_raw -= npages
+            sr.pages = [-1] * npages
+            if not sr.out_tokens:
+                sr.out_tokens.append(-1)
+        # finishes: only the max_new_tokens bound is predictable
+        for r in plan.prefill + plan.decode_rows:
+            sr = shadows.get(r.rid)
+            if sr is None or sr.state != RequestState.RUNNING:
+                continue
+            if len(sr.out_tokens) >= sr.max_new_tokens:
+                if sr.location == "cpu":
+                    host_raw += len(sr.pages)
+                else:
+                    dev_raw += len(sr.pages)
+                sr.state = RequestState.FINISHED
+                sr.pages = []
+        st.gpu_runq = [r for r in st.gpu_runq if r.state != RequestState.FINISHED]
+        st.cpu_runq = [r for r in st.cpu_runq if r.state != RequestState.FINISHED]
+        if dev_raw < 0 or host_raw < 0:
+            return None  # the prediction diverged from the scheduler's budget
+        pools_pred = PoolView(
+            page_size=page,
+            device_free=dev_raw,
+            host_free=host_raw,
+            device_total=self.pool.device.num_pages - 1,
+            host_total=self.pool.host.num_pages,
+        )
+        sig_pred = self._sig_of(st.waitq, st.gpu_runq, st.cpu_runq,
+                                pools_pred.device_free, pools_pred.host_free)
+        return st, shadows, pools_pred, sig_pred
+
+    def _launch_planahead(self, plan: BatchPlan) -> None:
+        """Start the speculative plan of the NEXT iteration (after commit,
+        before dispatch, so the planner runs under this step's lanes).  The
+        planner thread touches only shadow requests and its own pool view."""
+        self._spec = None
+        shadow = self._build_shadow(plan)
+        if shadow is None:
+            self.stats.planahead_skipped += 1
+            return
+        st, shadows, pools_pred, sig_pred = shadow
+        sched = self.scheduler
+
+        def _plan_spec():
+            t0 = time.perf_counter()
+            p = sched.plan(pools_pred, state=st)
+            return p, time.perf_counter() - t0
+
+        if self._planner is None:
+            self._planner = ThreadPoolExecutor(max_workers=1,
+                                               thread_name_prefix="neo-planner")
+        self._spec = (sig_pred, st, shadows, self._planner.submit(_plan_spec))
+
+    def _take_plan(self) -> Tuple[Optional[BatchPlan], bool]:
+        """Harvest the speculation in flight: ``(plan, False)`` on a hit,
+        ``(None, had_spec)`` otherwise (the caller plans fresh; had_spec
+        marks a REPLAN whose fresh planning time was hideable)."""
+        spec, self._spec = self._spec, None
+        if spec is None:
+            return None, False
+        sig_pred, st, shadows, fut = spec
+        t0 = time.perf_counter()
+        err = False
+        try:
+            plan_s, dur = fut.result(timeout=WAIT_TIMEOUT_S)
+        except Exception:
+            err = True
+        # a harvest wait (planning outlasted the lanes) is critical-path time
+        self.stats.plan_busy_time += time.perf_counter() - t0
+        if err or self._signature() != sig_pred:
+            self.stats.planahead_replans += 1
+            return None, True
+        real = self.requests
+
+        def rmap(rs: List[Request]) -> List[Request]:
+            return [real[sr.rid] for sr in rs]
+
+        plan = BatchPlan(
+            mode=plan_s.mode,
+            prefill=rmap(plan_s.prefill),
+            prefill_to_host=rmap(plan_s.prefill_to_host),
+            decode_gpu=rmap(plan_s.decode_gpu),
+            decode_cpu0=rmap(plan_s.decode_cpu0),
+            decode_cpu1=rmap(plan_s.decode_cpu1),
+            swap_out=rmap(plan_s.swap_out),
+            swap_in=rmap(plan_s.swap_in),
+            preempt=rmap(plan_s.preempt),
+            lane_splits=list(plan_s.lane_splits),
+            spec_k=plan_s.spec_k,
+            est_iter_time=plan_s.est_iter_time,
+            est_tokens=plan_s.est_tokens,
+            stages=plan_s.stages,
+        )
+        # planning's own queue/request mutations ran on the shadows; apply
+        # them to the real state as a fresh plan would have: aging
+        # (skipped), admission aborts, and the post-plan waitqueue
+        for sr in shadows.values():
+            r = real.get(sr.rid)
+            if r is None:
+                continue
+            r.skipped = sr.skipped
+            if sr.state == RequestState.ABORTED and r.state == RequestState.WAITING:
+                r.state = RequestState.ABORTED
+        self.scheduler.waitq = deque(real[sr.rid] for sr in st.waitq)
+        self.stats.planahead_hits += 1
+        # the planner's time was hidden under the previous step's lanes:
+        # realized AND ideal overlap both grow by it
+        self.stats.planahead_hidden_time += dur
+        self.stats.pipeline_overlap_time += dur
+        self.stats.pipeline_ideal_time += dur
+        return plan, False
+
+    # ------------------------------------------------------------------
     # one iteration
     # ------------------------------------------------------------------
     def step(self, now: Optional[float] = None) -> List[Tuple[int, int]]:
         """Run one inference iteration; returns [(rid, new_token), ...]."""
+        with on_stream(self._stream):
+            return self._step(now)
+
+    def _step(self, now: Optional[float]) -> List[Tuple[int, int]]:
         t0 = time.perf_counter()
         now = self.clock if now is None else now
         self.clock = now
         host_busy0 = self.host_attn.busy_time if self.paged else 0.0
         dev_busy0 = self.stats.device_busy_time
+        swap_busy0 = self.transfer.stats.busy_time if self.transfer else 0.0
 
-        p0 = time.perf_counter()
-        plan = self.scheduler.plan(self._pool_view())
-        self.stats.plan_busy_time += time.perf_counter() - p0
+        # -- PLAN: adopt the plan speculated during the previous iteration
+        #    when its predicted state still matches reality
+        plan, replanned = (self._take_plan() if self.paged else (None, False))
+        if plan is None:
+            p0 = time.perf_counter()
+            plan = self.scheduler.plan(self._pool_view())
+            dt = time.perf_counter() - p0
+            self.stats.plan_busy_time += dt
+            if replanned:
+                # a falsified speculation: this planning time WAS hideable
+                self.stats.pipeline_ideal_time += dt
         if plan.is_empty():
             return []
         self.stats.iterations += 1
@@ -289,20 +607,29 @@ class NeoEngine:
 
         self.stats.wall_time += time.perf_counter() - t0
         if self.paged:
-            # perf-model refresh from measured stage times (EWMA); the
+            # perf-model refresh from MEASURED stage times (EWMA); the
             # reference refreshes it on the paged path only
             host_busy = self.host_attn.busy_time - host_busy0
             self.stats.host_busy_time += host_busy
+            ts = self.transfer.stats
+            self.stats.swap_out_bytes = ts.bytes_out
+            self.stats.swap_in_bytes = ts.bytes_in
+            self.stats.swap_wait_time = ts.wait_time
             self.perf.observe_iteration(
                 plan.stages,
                 host_busy=host_busy,
                 device_busy=self.stats.device_busy_time - dev_busy0,
-                pipelined=False,
+                swap_busy=ts.busy_time - swap_busy0,
+                pipelined=self.engine_cfg.pipeline and plan.mode != "serial",
             )
         return emitted
 
     def _step_paged(self, plan: BatchPlan, now: float,
                     emitted: List[Tuple[int, int]]) -> None:
+        # "serial"-mode plans (strawman #1) execute without overlap by
+        # definition; everything else pipelines when enabled
+        pipelined = self.engine_cfg.pipeline and plan.mode != "serial"
+
         # ==== LAUNCH =========================================================
         # recompute preemption (both pools full): drop KV, requeue
         for r in plan.preempt:
@@ -311,23 +638,36 @@ class NeoEngine:
             r.location = "gpu"
             r.cached_len = 0
             r.prefix_loc = None
-        for r in plan.swap_out:
-            self.pool.swap_request(r, "cpu")
-        for r in plan.swap_in:
-            self.pool.swap_request(r, "gpu")
+        # swaps: page accounting moves now; the data moves on the copy
+        # streams (pipelined) or inline (serial)
+        out_handles: List = []
+        in_handles: List = []
+        if pipelined:
+            out_handles = [self.transfer.swap_out(r) for r in plan.swap_out]
+            in_handles = [self.transfer.swap_in(r) for r in plan.swap_in]
+        else:
+            for r in plan.swap_out:
+                self.pool.swap_request(r, "cpu")
+            for r in plan.swap_in:
+                self.pool.swap_request(r, "gpu")
         self.scheduler.commit(plan)
+        if pipelined and self.engine_cfg.planahead:
+            self._launch_planahead(plan)
+        dispatch_t0 = time.perf_counter()  # compute-window start (hidden bytes)
 
-        # Page allocation in the reference's order: prefill pages, then
-        # decode-row pages in gpu/cpu0/cpu1 plan order.  Replayed prefills
-        # (recompute preemption) re-derive their last token and do not emit.
+        # Page allocation in the serial path's order: prefill pages, then
+        # decode-row pages in gpu/cpu0/cpu1 plan order — the same page
+        # assignment on both paths.  Replayed prefills (recompute
+        # preemption) re-derive their last token and do not emit.
         page = self._page
 
         def _running(rs: List[Request]) -> List[Request]:
             return [r for r in rs
                     if r.state == RequestState.RUNNING and r not in plan.prefill]
 
-        rows = (_running(plan.decode_gpu) + _running(plan.decode_cpu0)
-                + _running(plan.decode_cpu1))
+        rows0 = _running(plan.decode_gpu) + _running(plan.decode_cpu0)
+        rows1 = _running(plan.decode_cpu1)
+        rows = rows0 + rows1
         to_host: List[bool] = []
         for r in plan.prefill:
             host = r in plan.prefill_to_host
@@ -341,27 +681,136 @@ class NeoEngine:
                 r.pages = r.pages + self.pool.pool(r.location).alloc(1)
             host_flags.append(host)
 
-        # ==== EXECUTE ========================================================
+        # ---- unified lane plan -------------------------------------------
+        # One optional DEVICE lane (prefill + batch-0, engine thread) plus K
+        # >= 0 HOST lanes over the scheduler's partition of batch-1 (rows
+        # preempted or finished since planning filtered out).  Host lanes
+        # launch FIRST on the lane threads, so their lane-scoped swap-out
+        # joins and host attention overlap the whole device lane; with no
+        # device lane the LAST host lane runs inline on the engine thread.
+        rows1_ids = set(id(r) for r in rows1)
+        lane_rows = [[r for r in lane if id(r) in rows1_ids] for lane in plan.host_lanes()]
+        lane_rows = [lane for lane in lane_rows if lane]
+        has_dev_lane = bool(plan.prefill or rows0)
+        n_lanes = len(lane_rows)
+        lane_windows: List[Tuple[float, float]] = []
+        futures: List[Tuple[int, Any]] = []
+        inline_idx: Optional[int] = None
+        if pipelined and lane_rows:
+            def _pre(rws: List[Request]):
+                # lane-scoped join: the swap-outs a lane depends on complete
+                # right before ITS host attention reads the pages
+                return lambda: self.transfer.join_requests(rws, kind="out")
+            thread_lanes = lane_rows if has_dev_lane else lane_rows[:-1]
+            for li, rws in enumerate(thread_lanes):
+                futures.append((li, self.executor.submit_host_lane(
+                    rws, pre=_pre(rws), lane=li + 1)))
+            if not has_dev_lane:
+                inline_idx = n_lanes - 1
+
+        # device lane: each dispatch's (start, end) window is kept apart so
+        # overlap accounting excludes the engine-thread gaps between them;
+        # each ends at the synchronising copy of its logits to the host
+        dev_windows: List[Tuple[float, float]] = []
         if plan.prefill:
             t0 = time.perf_counter()
             logits = self.executor.prefill(plan.prefill, to_host)
-            dt = time.perf_counter() - t0
-            self.stats.device_busy_time += dt
-            self.stats.lane_add("prefill", dt)
+            dev_windows.append((t0, time.perf_counter()))
+            self.stats.device_busy_time += dev_windows[-1][1] - t0
+            self.stats.lane_add("prefill", dev_windows[-1][1] - t0)
             self.stats.prefill_tokens += sum(r.suffix_len for r in plan.prefill)
             for i, r in enumerate(plan.prefill):
                 if not r.out_tokens:
                     self._emit(r, logits[i], now, emitted)
+
         if rows:
-            t0 = time.perf_counter()
-            logits = self.executor.decode(rows, host_flags)
-            dt = time.perf_counter() - t0
-            self.stats.device_busy_time += dt
-            self.stats.lane_add("serial", dt)
+            if pipelined:
+                # swap-ins join before batch-0 reads the pool; swap-outs
+                # join lane-scoped on the lane threads
+                self.transfer.join(in_handles)
+                logits0 = None
+                if rows0:
+                    t0 = time.perf_counter()
+                    logits0 = self.executor.decode_batch0(rows0, host_flags[: len(rows0)])
+                    dev_windows.append((t0, time.perf_counter()))
+                    self.stats.device_busy_time += dev_windows[-1][1] - t0
+                    self.stats.lane_add("batch0", dev_windows[-1][1] - t0)
+                lane_windows = [(0.0, 0.0)] * n_lanes
+                lane_logits: List[Optional[np.ndarray]] = [None] * n_lanes
+                inline_hb = 0.0
+                if inline_idx is not None:
+                    rws = lane_rows[inline_idx]
+                    self.transfer.join_requests(rws, kind="out")
+                    hb0 = self.host_attn.busy_time
+                    t0b = time.perf_counter()
+                    lane_logits[inline_idx] = self.executor.decode_host_lane(
+                        rws, lane=inline_idx + 1)
+                    lane_windows[inline_idx] = (t0b, time.perf_counter())
+                    inline_hb = self.host_attn.busy_time - hb0
+                for li, fut in futures:
+                    lane_logits[li], lane_windows[li] = fut.result(timeout=WAIT_TIMEOUT_S)
+                row_logits: List[np.ndarray] = []
+                if rows0:
+                    row_logits.extend(logits0)
+                for lg in lane_logits:
+                    row_logits.extend(lg)
+                # ---- measured overlap over N lanes: realized = lane-busy
+                # time beyond the union of the windows; ideal = everything
+                # but the longest lane
+                for li, w in enumerate(lane_windows):
+                    self.stats.lane_add(f"host{li}", w[1] - w[0])
+                interval_lanes: List[List[Tuple[float, float]]] = []
+                if dev_windows:
+                    interval_lanes.append(list(dev_windows))
+                interval_lanes += [[w] for w in lane_windows]
+                busy = [sum(e - s for s, e in lw) for lw in interval_lanes]
+                if len(interval_lanes) >= 2:
+                    total = sum(busy)
+                    union = _union([w for lw in interval_lanes for w in lw])
+                    self.stats.pipeline_overlap_time += max(0.0, total - union)
+                    self.stats.pipeline_ideal_time += max(0.0, total - max(busy))
+                    self.stats.pipelined_steps += 1
+                    if n_lanes >= 2:
+                        if has_dev_lane:
+                            self.stats.borrowed_lane_steps += 1
+                        else:
+                            self.stats.microbatched_steps += 1
+                elif inline_idx is not None:
+                    # fully serialized batch-1-only step: the hideable half
+                    # (the shorter of host attention vs the linear rest)
+                    # counts as ideal-but-unrealized overlap
+                    self.stats.pipeline_ideal_time += max(
+                        0.0, min(inline_hb, busy[0] - inline_hb))
+                    self.stats.serial_b1_steps += 1
+                if n_lanes:
+                    # the EXECUTED lane count (after the preemption filter)
+                    self.stats.lane_counts[n_lanes] = (
+                        self.stats.lane_counts.get(n_lanes, 0) + 1)
+            else:
+                t0 = time.perf_counter()
+                logits = self.executor.decode(rows, host_flags)
+                dev_windows.append((t0, time.perf_counter()))
+                self.stats.device_busy_time += dev_windows[-1][1] - t0
+                self.stats.lane_add("serial", dev_windows[-1][1] - t0)
+                row_logits = list(logits)
             self.stats.offloaded_decodes += sum(host_flags)
             self.stats.device_decodes += len(rows) - sum(host_flags)
             for i, r in enumerate(rows):
-                self._emit(r, logits[i], now, emitted)
+                self._emit(r, row_logits[i], now, emitted)
+
+        # ==== JOIN: barrier on every transfer no dispatch consumed (e.g.
+        # gpu_only swap-outs whose victims do not decode this iteration), so
+        # every step ends with the pools consistent
+        if pipelined:
+            self.transfer.drain()
+            # bytes hidden under compute: copy windows overlapped by this
+            # step's dispatch window (page tables + prefill + every lane)
+            dev_end = dev_windows[-1][1] if dev_windows else None
+            lanes_end = max((w[1] for w in lane_windows), default=None)
+            win_end = max(filter(None, (dev_end, lanes_end)), default=None)
+            if win_end is not None:
+                for h in out_handles + in_handles:
+                    self.stats.swap_hidden_bytes += h.hidden_bytes(dispatch_t0, win_end)
 
     def _step_contiguous(self, plan: BatchPlan, now: float,
                          emitted: List[Tuple[int, int]]) -> None:
@@ -398,10 +847,26 @@ class NeoEngine:
     # lifecycle and drivers
     # ------------------------------------------------------------------
     def close(self) -> None:
-        """Stop the host-attention worker threads (idempotent; a contiguous
-        engine has none)."""
-        if self.host_attn is not None:
-            self.host_attn.close()
+        """Join and stop the planner, transfer and lane threads and the
+        host-attention workers (idempotent; each wait has a timeout).  A
+        transfer that failed in flight surfaces its error here, after every
+        worker pool has been torn down."""
+        spec, self._spec = self._spec, None
+        if spec is not None:
+            spec[3].cancel()
+        if self._planner is not None:
+            self._planner.shutdown(wait=False, cancel_futures=True)
+            for t in list(getattr(self._planner, "_threads", ())):
+                t.join(WAIT_TIMEOUT_S)
+            self._planner = None
+        try:
+            if self.transfer is not None:
+                self.transfer.close()
+        finally:
+            if self.paged:
+                self.executor.close()
+            if self.host_attn is not None:
+                self.host_attn.close()
 
     def run_until_done(self, max_iters: int = 10_000) -> Dict[int, List[int]]:
         """Drain all queued work; returns {rid: out_tokens}."""

@@ -1,4 +1,4 @@
-"""Execution backends of the NEO engine (serial path).
+"""Execution backends of the NEO engine.
 
 :class:`PagedExecutor` (dense family) runs decode over the paged dual-pool
 KV cache and cold prefill.  Per decode step and layer:
@@ -17,11 +17,23 @@ KV cache and cold prefill.  Per decode step and layer:
   kernel when the rows' pages are split into ranges;
 * the output projection and FFN run on the device for all rows.
 
+:meth:`decode` is the serial path (``pipeline=False``) and, restricted to
+batch-0's rows, the pipelined engine's device lane (:meth:`decode_batch0`).
+The pipelined engine's **host lanes** (:meth:`decode_host_lane`,
+:meth:`submit_host_lane`) run the whole layer stack for host-only rows —
+projections and FFN on the card, attention in :class:`HostAttention` —
+without ever touching the device pool, so they run concurrently with the
+device lane and with each other: each on a thread of a pool of
+``host_lanes`` workers and on a CUDA stream of its own.  (On the legacy
+default stream a lane's per-layer copy of q/k/v to the host would wait for
+batch-0's queued kernels, and the overlap would silently vanish.)  Cold
+prefill runs the flash prefill kernel once per layer on the padded batch.
+
 Per-row compute is independent of the other rows, so a row's logits do not
 depend on which rows share its batch (up to the matmul's choice of
-algorithm for a different row count on the card; ROADMAP ground rule 3).
-The pipelined host lanes, row/page buckets for jit and tensor parallelism of
-the reference executor are not ported here (ROADMAP P7, P13).
+algorithm for a different row count; ROADMAP ground rule 3).  Row/page
+buckets for jit and tensor parallelism of the reference executor are not
+ported (ROADMAP P13).
 
 :class:`ContiguousExecutor` (ssm and hybrid families, device-only) keeps one
 slot of a contiguous cache per active request and runs the model's own
@@ -30,7 +42,10 @@ prefill (one request at a time) and decode (all slots at once).
 
 from __future__ import annotations
 
-from typing import Dict, List
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +54,8 @@ from repro_torch.config import ArchConfig
 from repro_torch.core.host_attention import HostAttention
 from repro_torch.core.kv_cache import DualPool
 from repro_torch.core.request import Request
+from repro_torch.core.transfer import WAIT_TIMEOUT_S
+from repro_torch.device import new_stream, on_stream
 from repro_torch.kernels.paged_decode import ops as paged_ops
 from repro_torch.models.layers import rms_norm, swiglu_apply
 from repro_torch.models.transformer import DenseLM, out_proj, project_qkv
@@ -47,13 +64,28 @@ from repro_torch.models.transformer import DenseLM, out_proj, project_qkv
 class PagedExecutor:
     """Paged decode + cold prefill for the dense family."""
 
-    def __init__(self, model: DenseLM, pool: DualPool, host_attn: HostAttention):
+    def __init__(self, model: DenseLM, pool: DualPool, host_attn: HostAttention,
+                 *, host_lanes: int = 2):
         self.model = model
         self.cfg: ArchConfig = model.cfg
         self.pool = pool
         self.host = host_attn
         self.page = pool.page_size
         self.device = model.device
+        # Host lanes: ``host_lanes`` dispatch threads; lane ids are small
+        # ints the engine assigns per step (the inline lane included), each
+        # with a CUDA stream of its own.
+        self.host_lanes = max(1, host_lanes)
+        self._lane_pool = ThreadPoolExecutor(max_workers=self.host_lanes,
+                                             thread_name_prefix="neo-hostlane")
+        self._lane_streams: Dict[int, Optional[torch.cuda.Stream]] = {}
+        self._streams_lock = threading.Lock()
+
+    def _lane_stream(self, lane: int):
+        with self._streams_lock:
+            if lane not in self._lane_streams:
+                self._lane_streams[lane] = new_stream(self.device)
+            return self._lane_streams[lane]
 
     # ------------------------------------------------------------------
     # decode
@@ -102,14 +134,7 @@ class PagedExecutor:
         host_idx_t = torch.from_numpy(host_idx).to(dev)
 
         # host rows: tables in the HOST pool, lens before the append
-        max_hp = max([len(rows[i].pages) for i in host_idx] + [1])
-        h_tables = np.zeros((len(host_idx), max_hp), np.int32)
-        for j, i in enumerate(host_idx):
-            h_tables[j, : len(rows[i].pages)] = rows[i].pages
-        h_rows = np.arange(len(host_idx))
-        h_lens = positions[host_idx].astype(np.int32)
-        h_pids = pids[host_idx].astype(np.int32)
-        h_offs = offs[host_idx].astype(np.int32)
+        h_meta = self._host_meta([rows[i] for i in host_idx], positions[host_idx], page)
 
         model, pk, pv = self.model, self.pool.device.k, self.pool.device.v
         x = model.embed_tokens(torch.from_numpy(tokens).to(dev))
@@ -122,20 +147,91 @@ class PagedExecutor:
             o = paged_ops.paged_decode_attention(q.contiguous(), pk[li], pv[li],
                                                  tables_t, lens_t)
             if len(host_idx):
-                # TrQKV (one copy) -> CPU attention -> TrO
-                R = len(host_idx)
-                qkv = torch.cat([t[host_idx_t].reshape(R, -1) for t in (q, k, v)], dim=1)
-                qkv = qkv.float().cpu().numpy()
-                nq, nk = q[0].numel(), k[0].numel()
-                qh = qkv[:, :nq].reshape(R, *q.shape[1:])
-                kh = qkv[:, nq:nq + nk].reshape(R, *k.shape[1:])
-                vh = qkv[:, nq + nk:].reshape(R, *v.shape[1:])
-                oh = self.host.run_layer(li, qh, kh, vh, host_rows=h_rows,
-                                         tables=h_tables, lens=h_lens,
-                                         page_ids=h_pids, offsets=h_offs)
-                o[host_idx_t] = torch.from_numpy(oh).to(dev).to(o.dtype)
+                o[host_idx_t] = self._host_attention(
+                    li, q[host_idx_t], k[host_idx_t], v[host_idx_t], h_meta, o.dtype)
             x = self._layer_post(blk, x, o)
         return model.final_logits(x).cpu().numpy()
+
+    def _host_attention(self, li: int, q, k, v, meta, dtype) -> torch.Tensor:
+        """TrQKV (one copy) -> CPU attention over the host pool -> TrO for
+        the host rows ``q``/``k``/``v`` [R, ...]; ``meta`` = (tables, lens,
+        page ids, offsets) in the host pool.  Returns [R, H, hd] in
+        ``dtype`` on the device."""
+        R = q.shape[0]
+        tables, lens, pids, offs = meta
+        qkv = torch.cat([t.reshape(R, -1) for t in (q, k, v)], dim=1)
+        qkv = qkv.float().cpu().numpy()
+        nq, nk = q[0].numel(), k[0].numel()
+        qh = qkv[:, :nq].reshape(R, *q.shape[1:])
+        kh = qkv[:, nq:nq + nk].reshape(R, *k.shape[1:])
+        vh = qkv[:, nq + nk:].reshape(R, *v.shape[1:])
+        oh = self.host.run_layer(li, qh, kh, vh, host_rows=np.arange(R), tables=tables,
+                                 lens=lens, page_ids=pids, offsets=offs)
+        return torch.from_numpy(oh).to(self.device).to(dtype)
+
+    # batch-0 is the decode pass over device + cpu0 rows: exactly the serial
+    # entry restricted to its sub-batch
+    decode_batch0 = decode
+
+    # ------------------------------------------------------------------
+    # host lanes (host rows only; run off the engine thread)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _host_meta(rows: List[Request], positions: np.ndarray, page: int):
+        """Host-pool tables, lens before the append, page ids and offsets of
+        the new token for ``rows``."""
+        max_hp = max([len(r.pages) for r in rows] + [1])
+        tables = np.zeros((len(rows), max_hp), np.int32)
+        for j, r in enumerate(rows):
+            tables[j, : len(r.pages)] = r.pages
+        pids = np.asarray([r.pages[p // page] for r, p in zip(rows, positions)], np.int32)
+        return (tables, positions.astype(np.int32), pids,
+                (positions % page).astype(np.int32))
+
+    @torch.inference_mode()
+    def decode_host_lane(self, rows: List[Request], *, lane: int = 1) -> np.ndarray:
+        """One decode iteration over host-resident ``rows`` (one host lane):
+        float32 logits [n, V].  The layer stack runs on the lane's own CUDA
+        stream — projections and FFN on the card, attention through
+        :meth:`_host_attention` — and never touches the device KV pool, so
+        it is safe beside :meth:`decode_batch0` and any other lane.  Each
+        concurrently running caller must use a distinct ``lane``."""
+        dev = self.device
+        tokens = np.asarray([r.all_tokens[-1] for r in rows], np.int64)
+        positions = np.asarray([r.kv_len for r in rows], np.int64)
+        meta = self._host_meta(rows, positions, self.page)
+        model = self.model
+        with on_stream(self._lane_stream(lane)):
+            x = model.embed_tokens(torch.from_numpy(tokens).to(dev))
+            pos_t = torch.from_numpy(positions).to(dev)
+            for li, blk in enumerate(model.layers):
+                q, k, v = self._layer_pre(blk, x, pos_t)
+                o = self._host_attention(li, q, k, v, meta, q.dtype)
+                x = self._layer_post(blk, x, o)
+            return model.final_logits(x).cpu().numpy()
+
+    def submit_host_lane(self, rows: List[Request], *,
+                         pre: Optional[Callable[[], None]] = None,
+                         lane: int = 1) -> Future:
+        """Launch one host lane on a dispatch thread; the future resolves to
+        ``(logits [n, V], (start, end))`` perf_counter stamps.  ``pre`` runs
+        on the lane thread before any page is read (the engine passes the
+        lane-scoped swap-out join there)."""
+
+        def run_lane() -> Tuple[np.ndarray, Tuple[float, float]]:
+            t0 = time.perf_counter()
+            if pre is not None:
+                pre()
+            out = self.decode_host_lane(rows, lane=lane)
+            return out, (t0, time.perf_counter())
+
+        return self._lane_pool.submit(run_lane)
+
+    def close(self, timeout: float = WAIT_TIMEOUT_S) -> None:
+        """Stop the lane threads (idempotent); each is joined with a timeout."""
+        self._lane_pool.shutdown(wait=False, cancel_futures=True)
+        for t in list(getattr(self._lane_pool, "_threads", ())):
+            t.join(timeout)
 
     # ------------------------------------------------------------------
     # prefill

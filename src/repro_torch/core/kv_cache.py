@@ -14,12 +14,22 @@ see the same byte counts on both sides.
 Free-page accounting is host-side Python, exactly like vLLM's block manager
 and the reference: free list, per-page refcounts, an optional refcount
 listener.
+
+Two sets of page I/O: the blocking whole-request copy of the serial path
+(:meth:`PagePool.read_pages` / :meth:`PagePool.put_pages`,
+:meth:`DualPool.swap_request`), and the primitives of the asynchronous
+transfers of :mod:`repro_torch.core.transfer` — :meth:`PagePool.gather`
+(whole pages, all layers, into a staging tensor on the pool's device, cast
+there), :meth:`PagePool.scatter` (a staging tensor back into pages) and
+:func:`copy_async` (staging to the other side of PCIe on a given stream,
+into pinned memory when it lands on the host, with an event recorded after
+the copy).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,6 +67,7 @@ class PagePool:
             self.v = torch.zeros(shape, dtype=self.dtype, pin_memory=pin)
         else:
             raise ValueError(f"unknown backend {backend!r}")
+        self.pinned = self.k.is_pinned()  # a host pool beside a card
         self._free: List[int] = list(range(num_pages))
         # Per-page reference counts: a page returns to the free list only
         # when its LAST reader releases it.
@@ -138,6 +149,55 @@ class PagePool:
             k, v = k.to(self.dtype).to(dev), v.to(self.dtype).to(dev)
         self.k[:, idx] = k
         self.v[:, idx] = v
+
+    def gather(self, pages: Sequence[int], dtype: Optional[torch.dtype] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Copies of whole ``pages`` (every layer), [L, n, page, KV, hd], on
+        this pool's device in ``dtype`` (this pool's by default), enqueued on
+        the current stream: a snapshot that later writes to the pages do not
+        change once the stream has run it.  A pinned pool gathers into pinned
+        memory, so a copy to the card reads the snapshot as it is."""
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=self.k.device)
+        dtype = dtype or self.dtype
+
+        def select(t: torch.Tensor) -> torch.Tensor:
+            if not self.pinned:
+                return t.index_select(1, idx)
+            out = torch.empty((t.shape[0], len(idx), *t.shape[2:]), dtype=t.dtype,
+                              pin_memory=True)
+            return torch.index_select(t, 1, idx, out=out)
+
+        return select(self.k).to(dtype), select(self.v).to(dtype)
+
+    def scatter(self, pages: Sequence[int], k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write [L, n, page, KV, hd] tensors that already lie on this pool's
+        device into ``pages``, cast to this pool's dtype, on the current
+        stream."""
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=self.k.device)
+        self.k[:, idx] = k.to(self.dtype)
+        self.v[:, idx] = v.to(self.dtype)
+
+
+def copy_async(t: torch.Tensor, device: torch.device, stream
+               ) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:
+    """Copy ``t`` to ``device`` on ``stream`` without blocking the host:
+    device to host into pinned memory, host to device from pinned memory
+    (``t`` is staged there first when it is not pinned).  Returns the copy
+    and an event recorded on ``stream`` after it; the copy may be read once
+    the event has completed.  With no card on either side the copy is a
+    plain one and the event None."""
+    if t.device.type != "cuda" and device.type != "cuda":
+        return t.to(device, copy=True), None
+    with torch.cuda.stream(stream):
+        if device.type == "cpu":
+            dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            dst.copy_(t, non_blocking=True)
+        else:
+            src = t if t.is_pinned() else t.pin_memory()
+            dst = src.to(device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    return dst, ev
 
 
 class DualPool:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -35,3 +36,15 @@ def torch_dtype(name: str) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}") from None
+
+
+def new_stream(device: torch.device) -> Optional["torch.cuda.Stream"]:
+    """A CUDA stream of its own on ``device``; None on the CPU, where every
+    op runs in program order anyway."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+def on_stream(stream: Optional["torch.cuda.Stream"]):
+    """Context that makes ``stream`` current (a no-op for None: the CPU)."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+

@@ -23,6 +23,11 @@ from typing import Dict, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
+_KERNELS = Path(__file__).resolve().parent
+# every kernel of the port, one source each (what build_all builds by default)
+SOURCES = tuple(_KERNELS / name / "csrc" / f"{name}.cu"
+                for name in ("paged_decode", "flash_prefill", "rwkv6_scan", "mamba2_ssd"))
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,9 +53,10 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(sources: Sequence[Path]) -> Dict[Path, str]:
-    """Compile every source whose library is not built yet, one ``nvcc``
-    each, all started together and then joined.  Returns each source's
+def build_all(sources: Sequence[Path] = SOURCES) -> Dict[Path, str]:
+    """Compile every source whose library is not built yet (every kernel of
+    the port by default), one ``nvcc`` each, all started together and then
+    joined.  Returns each source's
     compiler log (``-Xptxas -v``: registers, shared memory, spills), or ""
     when nothing was built for it; raises with the logs of the sources that
     failed once every process has ended."""

@@ -1,24 +1,32 @@
 """Serving launcher of the port.
 
 Runs the port's NeoEngine on the card (``--device cpu`` for the CPU) through
-the closed-loop runner :func:`run_trace`: requests are submitted as their
-arrival time passes, one engine step per loop turn.
+one of two loops, as the JAX launcher does:
+
+* :func:`run_trace` — closed loop: requests are submitted as their arrival
+  time passes, one engine step per loop turn;
+* :func:`run_online` — open loop (``--arrivals poisson`` or
+  ``replay:<path.jsonl>``): requests are OFFERED (admission control may
+  reject them), join the running batch mid-flight and stream out as they
+  finish, while plan-ahead builds the next iteration's plan.
+
+``--sustained`` runs :func:`run_sustained`, the A/B gate of closed-loop
+lockstep against open loop with plan-ahead.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
-      --no-pipeline --trace osc --n 8 --rate 4 --policy neo
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --no-pipeline
+      --trace osc --n 8 --rate 4 --policy neo
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --arrivals poisson --n 24 --rate 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
 
-Flags are the JAX launcher's.  The dense archs run through the paged engine;
+Flags are the JAX launcher's; the engine is pipelined unless
+``--no-pipeline``.  The dense archs run through the paged engine;
 ``rwkv6-7b`` (ssm) and ``zamba2-7b`` (hybrid) through the contiguous engine,
-for which the pool flags (``--device-pages``, ``--host-pages``) do not apply
-and are ignored, as the JAX launcher ignores them, and ``--max-batch-tokens``
-is each slot's capacity.  Only the serial engine is ported, so
-``--no-pipeline`` is required; the open-loop runner (``--arrivals``,
-``--sustained``, ``--slo-ttft``, ``--slo-tpot``), the pipelined engine's
-knobs (``--no-microbatch``, ``--max-host-lanes``, ``--no-planahead``), the
-prefix cache, tensor parallelism, speculative decoding (``--spec-k``
-included) and tracing raise ``NotImplementedError`` naming their ROADMAP
-item.
+for which the pool flags (``--device-pages``, ``--host-pages``) and the
+pipeline flags do not apply and are ignored, as the JAX launcher ignores
+them, and ``--max-batch-tokens`` is each slot's capacity.  The prefix
+cache, tensor parallelism, speculative decoding (``--spec-k`` included) and
+tracing raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from repro_torch.core.request import RequestState
 from repro_torch.serving.metrics import RequestRecord, ServeMetrics
 from repro_torch.serving.traces import get_trace, save_trace
 
-SLO_TTFT, SLO_TPOT = 10.0, 1.0  # the JAX launcher's defaults (read by --sustained)
+SLO_TTFT, SLO_TPOT = 10.0, 1.0  # the JAX launcher's defaults
 
 
 def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
@@ -48,9 +56,21 @@ def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
     metrics.device_decodes = s.device_decodes
     metrics.host_busy_time = s.host_busy_time
     metrics.device_busy_time = s.device_busy_time
+    metrics.pipeline_overlap_time = s.pipeline_overlap_time
+    metrics.bubble_fraction = s.bubble_fraction
+    metrics.swap_hidden_bytes = s.swap_hidden_bytes
+    metrics.swap_wait_time = s.swap_wait_time
+    metrics.microbatched_steps = s.microbatched_steps
+    metrics.serial_b1_steps = s.serial_b1_steps
+    metrics.borrowed_lane_steps = s.borrowed_lane_steps
+    metrics.lane_count_steps = dict(s.lane_counts)
     metrics.lane_busy = dict(s.lane_busy_time)
     metrics.prefill_tokens_computed = s.prefill_tokens
+    metrics.planahead_hits = s.planahead_hits
+    metrics.planahead_replans = s.planahead_replans
+    metrics.planahead_skipped = s.planahead_skipped
     metrics.plan_busy_time = s.plan_busy_time
+    metrics.planahead_hidden_time = s.planahead_hidden_time
     metrics.rejected_requests = s.rejected_requests
     if engine.pool is not None:
         metrics.swap_bytes = engine.pool.swap_bytes
@@ -100,6 +120,66 @@ def run_trace(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,
     return metrics
 
 
+def run_online(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,
+               max_iters: int = 100_000, on_token=None) -> ServeMetrics:
+    """Open-loop continuous-batching loop.
+
+    Requests are OFFERED as their arrival time passes; admission control
+    (``EngineConfig.max_waiting``) may reject them, and a rejected request
+    keeps a terminal record.  Admitted requests join the running batch
+    mid-flight and depart the moment they finish.  ``on_token(rid, token)``
+    is called once per newly emitted token, in emission order per request.
+    """
+    rng = np.random.default_rng(seed)
+    pending = sorted(trace, key=lambda t: t.arrival_time)
+    for t in pending:
+        t.materialise(rng, vocab)
+    metrics = ServeMetrics()
+    records = {}
+    streamed = {}  # rid -> tokens already handed to on_token
+    i = 0
+    iters = 0
+    t0 = time.perf_counter()
+    while iters < max_iters:
+        now = time.perf_counter() - t0
+        while i < len(pending) and pending[i].arrival_time <= now:
+            tr = pending[i]
+            rid = engine.offer(tr.prompt, tr.output_len, arrival_time=tr.arrival_time)
+            i += 1
+            if rid is None:
+                metrics.record_rejection(tr.arrival_time, tr.prompt_len,
+                                         tr.output_len, "max_waiting")
+                continue
+            records[rid] = RequestRecord(rid, tr.arrival_time, tr.prompt_len, tr.output_len)
+            metrics.records.append(records[rid])
+        emitted = engine.step(now=now)
+        iters += 1
+        done_now = time.perf_counter() - t0
+        for rid, req in engine.requests.items():
+            rec = records.get(rid)
+            if rec is None:
+                continue
+            if req.first_token_time is not None and rec.first_token_time is None:
+                rec.first_token_time = done_now
+            if on_token is not None:
+                seen = streamed.get(rid, 0)
+                for tok in req.out_tokens[seen:]:
+                    on_token(rid, tok)
+                streamed[rid] = len(req.out_tokens)
+            if req.finish_time is not None and rec.finish_time is None:
+                rec.finish_time = done_now
+                rec.status = ("cancelled"
+                              if req.state == RequestState.ABORTED
+                              else "finished")
+        if not emitted and i >= len(pending) and engine.scheduler.num_queued == 0:
+            break
+        if not emitted and i < len(pending):
+            time.sleep(max(0.0, pending[i].arrival_time - (time.perf_counter() - t0)))
+    metrics.makespan = time.perf_counter() - t0
+    _mirror_stats(engine, metrics)
+    return metrics
+
+
 def _clamp_trace(trace, max_batch_tokens: int, max_output: int = 32):
     """Clamp lengths to smoke scale, as the JAX launcher does."""
     for t in trace:
@@ -110,18 +190,87 @@ def _clamp_trace(trace, max_batch_tokens: int, max_output: int = 32):
     return trace
 
 
+def run_sustained(*, arch: str = "qwen3-0.6b", smoke: bool = True,
+                  policy: str = "neo", trace_name: str = "osc",
+                  n: int = 24, rate: float = 8.0,
+                  device_pages: int = 64, host_pages: int = 256,
+                  max_batch_tokens: int = 2048,
+                  slo_ttft: float = SLO_TTFT, slo_tpot: float = SLO_TPOT,
+                  max_output: int = 16, seed: int = 0,
+                  goodput_tol: float = 0.95, device=None) -> dict:
+    """Sustained-load A/B gate: closed-loop lockstep (plan-ahead OFF) vs
+    the open-loop runner with plan-ahead ON, on the same trace, seed and
+    random weights.  Per-row compute does not depend on the plan, so the two
+    runs must emit the same tokens per request.  Gates: ``planahead_hits >
+    0``, identical outputs, open-loop p99 TTFT within the SLO, open-loop
+    goodput >= ``goodput_tol`` x closed-loop goodput."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+
+    def build(planahead: bool) -> NeoEngine:
+        ecfg = EngineConfig(
+            device_pool_pages=device_pages, host_pool_pages=host_pages,
+            max_batch_tokens=max_batch_tokens, policy=policy,
+            planahead=planahead, seed=seed)
+        return NeoEngine(cfg, ecfg, device=device)
+
+    def mk_trace():
+        return _clamp_trace(get_trace(trace_name, n, rate, seed), max_batch_tokens, max_output)
+
+    def outputs(engine: NeoEngine):
+        return {rid: list(r.out_tokens) for rid, r in engine.requests.items()}
+
+    closed = build(planahead=False)
+    m_closed = run_trace(closed, mk_trace(), vocab=cfg.vocab_size, seed=seed)
+    out_closed = outputs(closed)
+    closed.close()
+
+    open_ = build(planahead=True)
+    m_open = run_online(open_, mk_trace(), vocab=cfg.vocab_size, seed=seed)
+    out_open = outputs(open_)
+    open_.close()
+
+    g_closed = m_closed.goodput(slo_ttft, slo_tpot)
+    g_open = m_open.goodput(slo_ttft, slo_tpot)
+    p99_ttft_open = m_open.ttft(99)
+    gates = {
+        "planahead_hits_gt0": m_open.planahead_hits > 0,
+        "bitwise_identical": out_open == out_closed,
+        "p99_ttft_within_slo": bool(p99_ttft_open <= slo_ttft),
+        "goodput_no_regress": bool(g_open >= goodput_tol * g_closed),
+    }
+    return {
+        "policy": policy,
+        "trace": trace_name,
+        "n": n,
+        "rate_rps": rate,
+        "slo_ttft_s": slo_ttft,
+        "slo_tpot_s": slo_tpot,
+        "closed": {
+            "goodput_rps": round(g_closed, 3),
+            "makespan_s": round(m_closed.makespan, 3),
+            "ttft_p99_ms": round(m_closed.ttft(99) * 1e3, 2),
+            "tpot_p99_ms": round(m_closed.tpot(99) * 1e3, 2),
+            "plan_busy_s": round(m_closed.plan_busy_time, 4),
+        },
+        "open": {
+            "goodput_rps": round(g_open, 3),
+            "makespan_s": round(m_open.makespan, 3),
+            "ttft_p99_ms": round(p99_ttft_open * 1e3, 2),
+            "tpot_p99_ms": round(m_open.tpot(99) * 1e3, 2),
+            "plan_busy_s": round(m_open.plan_busy_time, 4),
+            "planahead_hits": m_open.planahead_hits,
+            "planahead_replans": m_open.planahead_replans,
+            "planahead_skipped": m_open.planahead_skipped,
+            "planahead_hidden_s": round(m_open.planahead_hidden_time, 4),
+            "rejected_requests": m_open.rejected_requests,
+        },
+        "gates": gates,
+        "pass": all(gates.values()),
+    }
+
+
 def _unported_flags(args) -> str:
     """The first flag asking for something the port does not run yet."""
-    if not args.no_pipeline:
-        return ("pipelined execution is not ported yet (ROADMAP P7); "
-                "pass --no-pipeline")
-    if (args.no_microbatch or args.no_planahead
-            or args.max_host_lanes != EngineConfig.max_host_lanes):
-        return ("micro-batching, host lanes and plan-ahead belong to the pipelined "
-                "engine, not ported yet (ROADMAP P7)")
-    if (args.arrivals != "closed" or args.sustained
-            or (args.slo_ttft, args.slo_tpot) != (SLO_TTFT, SLO_TPOT)):
-        return "open-loop serving (run_online, run_sustained) is not ported yet (ROADMAP P6/P7)"
     if args.prefix_cache or args.require_hits or args.host_serving:
         return "the prefix cache is not ported yet (ROADMAP P9)"
     if args.tp != 1:
@@ -150,18 +299,26 @@ def main(argv=None) -> int:
     ap.add_argument("--host-pages", type=int, default=256)
     ap.add_argument("--max-batch-tokens", type=int, default=2048)
     ap.add_argument("--no-pipeline", action="store_true",
-                    help="serial execution (required: the pipelined engine is not ported yet)")
-    ap.add_argument("--no-microbatch", action="store_true")
-    ap.add_argument("--max-host-lanes", type=int, default=EngineConfig.max_host_lanes)
+                    help="serial reference execution (no async swaps/overlap)")
+    ap.add_argument("--no-microbatch", action="store_true",
+                    help="disable multi-lane batch-1 splitting")
+    ap.add_argument("--max-host-lanes", type=int, default=EngineConfig.max_host_lanes,
+                    help="upper bound K on concurrent host lanes per plan")
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--require-hits", action="store_true")
     ap.add_argument("--host-serving", action="store_true")
-    ap.add_argument("--arrivals", default="closed")
-    ap.add_argument("--no-planahead", action="store_true")
+    ap.add_argument("--arrivals", default="closed",
+                    help="closed = lockstep runner (run_trace); poisson = open loop "
+                         "(run_online) with the --trace generator's arrivals; "
+                         "replay:<path.jsonl> = open loop with replayed arrivals")
+    ap.add_argument("--no-planahead", action="store_true",
+                    help="plan on the critical path every step")
     ap.add_argument("--max-waiting", type=int, default=0)
     ap.add_argument("--slo-ttft", type=float, default=SLO_TTFT)
     ap.add_argument("--slo-tpot", type=float, default=SLO_TPOT)
-    ap.add_argument("--sustained", action="store_true")
+    ap.add_argument("--sustained", action="store_true",
+                    help="sustained-load A/B gate (closed lockstep vs open loop + "
+                         "plan-ahead); exit 1 when a gate fails")
     ap.add_argument("--save-trace", default="",
                     help="write the (clamped) trace as JSONL for replay")
     ap.add_argument("--trace-out", default="")
@@ -178,25 +335,51 @@ def main(argv=None) -> int:
     why = _unported_flags(args)
     if why:
         raise NotImplementedError(why)
+    if args.sustained:
+        result = run_sustained(
+            arch=args.arch, smoke=args.smoke, policy=args.policy,
+            trace_name=args.trace, n=args.n, rate=args.rate,
+            device_pages=args.device_pages, host_pages=args.host_pages,
+            max_batch_tokens=args.max_batch_tokens,
+            slo_ttft=args.slo_ttft, slo_tpot=args.slo_tpot,
+            seed=args.seed, device=args.device)
+        print(json.dumps(result, indent=1))
+        if not result["pass"]:
+            failed = [k for k, ok in result["gates"].items() if not ok]
+            print(f"[serve] FAIL: sustained-load gates failed: {failed}")
+            return 1
+        print("[serve] sustained-load OK: open loop + plan-ahead holds goodput at "
+              "the SLO with identical outputs")
+        return 0
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     ecfg = EngineConfig(
         device_pool_pages=args.device_pages,
         host_pool_pages=args.host_pages,
         max_batch_tokens=args.max_batch_tokens,
         policy=args.policy,
-        pipeline=False,
+        pipeline=not args.no_pipeline,
+        microbatch=not args.no_microbatch,
+        max_host_lanes=args.max_host_lanes,
+        planahead=not args.no_planahead,
         max_waiting=args.max_waiting,
         seed=args.seed,
     )
+    open_loop = args.arrivals != "closed"
     print(f"[serve] arch={cfg.name} policy={args.policy} device={args.device} "
-          f"pipeline=False pools=({args.device_pages},{args.host_pages})")
+          f"pipeline={not args.no_pipeline} microbatch={not args.no_microbatch} "
+          f"planahead={not args.no_planahead} arrivals={args.arrivals} "
+          f"pools=({args.device_pages},{args.host_pages})")
     engine = NeoEngine(cfg, ecfg, device=args.device)
-    trace = get_trace(args.trace, args.n, args.rate, args.seed)
+    if args.arrivals.startswith("replay:"):
+        trace = get_trace(args.arrivals, args.n, args.rate, args.seed)
+    else:
+        trace = get_trace(args.trace, args.n, args.rate, args.seed)
     _clamp_trace(trace, args.max_batch_tokens)
     if args.save_trace:
         save_trace(trace, args.save_trace)
         print(f"[serve] wrote {len(trace)} requests to {args.save_trace}")
-    m = run_trace(engine, trace, vocab=cfg.vocab_size, seed=args.seed)
+    runner = run_online if open_loop else run_trace
+    m = runner(engine, trace, vocab=cfg.vocab_size, seed=args.seed)
     engine.close()
     print(json.dumps(m.summary(), indent=1))
     print("scheduler modes:", m.mode_counts)

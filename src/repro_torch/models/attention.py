@@ -1,9 +1,12 @@
 """Attention over contiguous K/V, in plain torch (matmul + softmax), as the
 JAX package leaves these to XLA.
 
-* :func:`chunked_attention` — prefill attention, chunked over queries so the
-  [Sq, Skv] score matrix is never materialised whole.  The engine's cold
-  prefill uses it.
+* :func:`prefill_attention` — causal (optionally sliding-window) prefill
+  attention: the flash prefill kernel (:mod:`repro_torch.kernels.flash_prefill`)
+  by default, or :func:`chunked_attention` when asked for the plain version
+  (oracles and tests).  Every dense and zamba2 prefill goes through it.
+* :func:`chunked_attention` — the plain prefill attention, chunked over
+  queries so the [Sq, Skv] score matrix is never materialised whole.
 * :func:`decode_attention` — one-token decode over a contiguous per-sequence
   cache; the dense oracle's decode path and zamba2's shared-attention decode.
 * :func:`write_kv` — write each row's new K/V at its own position (zamba2's
@@ -18,6 +21,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.kernels.flash_prefill import flash_prefill
 
 NEG_INF = -1e30
 
@@ -67,6 +72,28 @@ def chunked_attention(
         p = torch.softmax(s, dim=-1)
         outs.append(torch.einsum("bchs,bshd->bchd", p.to(v.dtype), v))
     return torch.cat(outs, dim=1)
+
+
+def prefill_attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, S, KV, hd]
+    v: torch.Tensor,  # [B, S, KV, hd]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    impl: str = "kernel",
+) -> torch.Tensor:
+    """Prefill attention over the sequence itself.  ``impl="kernel"`` is the
+    flash prefill kernel's wrapper (its plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors); ``impl="plain"`` is
+    :func:`chunked_attention`, for oracles that must not depend on the
+    kernel."""
+    if impl == "kernel":
+        return flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal, window=window)
+    if impl == "plain":
+        return chunked_attention(q, k, v, causal=causal, window=window)
+    raise ValueError(f"unknown impl {impl!r}")
 
 
 def decode_attention(

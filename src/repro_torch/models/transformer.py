@@ -56,12 +56,14 @@ def out_proj(p, o: torch.Tensor) -> torch.Tensor:
 
 
 def attn_full(p, cfg: ArchConfig, x: torch.Tensor, *, causal: bool = True,
-              window: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              window: int = 0, impl: str = "kernel"
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence attention (prefill); x: [B, S, d] normalised input.
-    Returns (out [B, S, d], roped k [B, S, KV, hd], v [B, S, KV, hd])."""
+    Returns (out [B, S, d], roped k [B, S, KV, hd], v [B, S, KV, hd]).
+    ``impl``: see :func:`repro_torch.models.attention.prefill_attention`."""
     S = x.shape[1]
     q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device))
-    o = attn_lib.chunked_attention(q, k, v, causal=causal, window=window)
+    o = attn_lib.prefill_attention(q, k, v, causal=causal, window=window, impl=impl)
     return out_proj(p, o), k, v
 
 
@@ -119,10 +121,10 @@ class Block(nn.Module):
         init_attn(self.attn, cfg, g)
         init_mlp(self.mlp, g)
 
-    def full(self, cfg: ArchConfig, x: torch.Tensor
+    def full(self, cfg: ArchConfig, x: torch.Tensor, impl: str = "kernel"
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Causal full-sequence layer; returns (x, roped k, v)."""
-        o, k, v = attn_full(self.attn, cfg, rms_norm(x, self.ln1, cfg.rms_eps))
+        o, k, v = attn_full(self.attn, cfg, rms_norm(x, self.ln1, cfg.rms_eps), impl=impl)
         x = x + o
         x = x + swiglu_apply(self.mlp, rms_norm(x, self.ln2, cfg.rms_eps))
         return x, k, v
@@ -190,21 +192,24 @@ class DenseLM(nn.Module):
     # -- serve: prefill ------------------------------------------------------
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
-                true_lens: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
+                true_lens: Optional[torch.Tensor] = None,
+                impl: str = "kernel") -> Tuple[torch.Tensor, Cache]:
         """tokens: [B, S] -> (next-token logits [B, V], cache).
 
         ``true_lens`` [B] marks each row's unpadded length when prompts are
         packed into one padded batch: logits are taken at ``true_lens - 1``.
         Padding must be a suffix (causal attention keeps valid positions
         exact).  The cache holds ``k``/``v`` [L, B, capacity, KV, hd] and
-        ``lens`` [B].
+        ``lens`` [B].  Attention runs the flash prefill kernel once per layer
+        (``impl="kernel"``) or its plain version (``impl="plain"``, for
+        oracles).
         """
         B, S = tokens.shape
         capacity = capacity or S
         x = self.embed_tokens(tokens.to(self.device))
         ks, vs = [], []
         for blk in self.layers:
-            x, k, v = blk.full(self.cfg, x)
+            x, k, v = blk.full(self.cfg, x, impl)
             ks.append(k)
             vs.append(v)
         if true_lens is None:

@@ -86,10 +86,10 @@ class SharedBlock(nn.Module):
         xin = xin + swiglu_apply(self.mlp, rms_norm(xin, self.ln2, cfg.rms_eps))
         return x + xin @ self.w_out
 
-    def seq(self, cfg: ArchConfig, x, x0, *, window: int = 0):
+    def seq(self, cfg: ArchConfig, x, x0, *, window: int = 0, impl: str = "kernel"):
         """x, x0: [B, T, d] -> (x, roped k, v [B, T, KV, hd])."""
         xin, h1 = self._enter(cfg, x, x0)
-        o, k, v = attn_full(self.attn, cfg, h1, causal=True, window=window)
+        o, k, v = attn_full(self.attn, cfg, h1, causal=True, window=window, impl=impl)
         return self._leave(cfg, x, xin + o), k, v
 
     def step(self, cfg: ArchConfig, x, x0, kc, vc, lens, rows=None):
@@ -194,8 +194,12 @@ class Zamba2LM(nn.Module):
         """tokens: [B, S] -> (next-token logits [B, V] f32, cache).  The
         shared attention's K/V is written at [0, S) and zero-padded to
         ``capacity`` (or cut to it when S > capacity, as the reference does;
-        the engine keeps S <= capacity).  ``impl``: see the module
-        docstring of :mod:`repro_torch.models.mamba2`."""
+        the engine keeps S <= capacity).  ``impl`` picks the kernels or
+        their plain versions for the SSD scans and the shared attention
+        alike: see the module docstring of :mod:`repro_torch.models.mamba2`
+        and :func:`repro_torch.models.attention.prefill_attention`.  The
+        shared attention is causal over the whole prompt, as the reference's
+        prefill (its sliding window applies to long-context decode only)."""
         cfg = self.cfg
         B, S = tokens.shape
         capacity = capacity or self.cache_capacity(S)
@@ -203,7 +207,7 @@ class Zamba2LM(nn.Module):
         x0 = x
         ssm, conv, ks, vs = [], [], [], []
         for _, blocks in self._schedule():
-            x, k, v = self.shared.seq(cfg, x, x0)
+            x, k, v = self.shared.seq(cfg, x, x0, impl=impl)
             ks.append(k)
             vs.append(v)
             for i in blocks:

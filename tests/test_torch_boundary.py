@@ -30,6 +30,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+for n in ("repro_torch.core.transfer", "repro_torch.kernels.flash_prefill.ops",
+          "repro_torch.kernels.flash_prefill.ref"):
+    assert n in names, n
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -73,10 +76,16 @@ def test_entry_points_refuse_cpu_fallback(no_cuda):
         NeoEngine(CFG, ecfg, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--no-pipeline", "--n", "1"])
+    # the pipelined engine and the default CLI (pipelined, closed loop) too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NeoEngine(CFG, EngineConfig(pipeline=True, device_pool_pages=4, host_pool_pages=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--n", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--n", "1", "--arrivals", "poisson"])
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(pipeline=True), "P7"),
     (dict(pipeline=False, tp=2), "P13"),
     (dict(pipeline=False, prefix_cache=True), "P9"),
     (dict(pipeline=False, spec_decode=True), "P10"),
@@ -87,11 +96,27 @@ def test_unported_engine_options_raise(option, item):
         NeoEngine(CFG, EngineConfig(**option), device="cpu")
 
 
+def test_pipelined_engine_runs_on_cpu_when_asked():
+    """``pipeline=True`` (refused before the pipelined engine was ported)
+    builds the TransferEngine and the host lanes and serves."""
+    eng = NeoEngine(CFG, EngineConfig(pipeline=True, device_pool_pages=8, host_pool_pages=16,
+                                      max_batch_tokens=64), device="cpu")
+    try:
+        assert eng.transfer is not None and eng.executor.host_lanes == 4
+        rid = eng.submit([1, 2, 3, 4, 5], 3)
+        assert len(eng.run_until_done(50)[rid]) == 3
+    finally:
+        eng.close()
+
+
 def test_default_engine_config_is_pipelined_and_h100():
     ecfg = EngineConfig()
     assert ecfg.pipeline and ecfg.hw_profile == "h100_sxm"
-    with pytest.raises(NotImplementedError, match="pipeline=False"):
-        NeoEngine(CFG, ecfg, device="cpu")
+    eng = NeoEngine(CFG, ecfg, device="cpu")
+    try:
+        assert eng.engine_cfg.pipeline and eng.transfer is not None
+    finally:
+        eng.close()
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -1,7 +1,8 @@
 """The port's serving front end against the JAX package's: ``run_trace`` on
 the same trace and weights gives the same per-request outputs, and the
-``serve`` CLI runs on the CPU only when asked and refuses what is not
-ported."""
+``serve`` CLI runs on the CPU only when asked — pipelined by default, open
+loop with ``--arrivals``, the sustained-load gate with ``--sustained`` — and
+refuses what is not ported."""
 
 import numpy as np
 import pytest
@@ -70,20 +71,37 @@ def test_cli_serves_contiguous_families_on_cpu(arch, mode, capsys):
     assert '"requests": 3' in out and f"scheduler modes: {{'{mode}'" in out
 
 
+# Each of these was refused before the pipelined engine and the open-loop
+# runner were ported; each now runs.
+@pytest.mark.parametrize("flags,expect", [
+    ([], ['"planahead_hits": ', "pipeline=True"]),
+    (["--arrivals", "poisson"], ["arrivals=poisson"]),
+    (["--sustained"], ['"bitwise_identical": true', '"planahead_hits_gt0": true']),
+    (["--no-microbatch"], ['"microbatched_steps": 0', "microbatch=False"]),
+    (["--max-host-lanes", "2"], ['"requests": 3']),
+    (["--no-planahead"], ['"planahead_hits": 0,', "planahead=False"]),
+    (["--slo-ttft", "5"], ['"requests": 3']),
+    (["--slo-tpot", "0.5"], ['"requests": 3']),
+])
+def test_cli_runs_pipelined_and_open_loop_on_cpu(flags, expect, capsys):
+    rc = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--n", "3",
+                     "--rate", "64", "--device-pages", "12", "--host-pages", "32",
+                     "--max-batch-tokens", "128", *flags])
+    out = capsys.readouterr().out
+    for text in expect:
+        assert text in out, text
+    if "--sustained" in flags:
+        assert rc == (0 if '"pass": true' in out else 1)
+    else:
+        assert rc == 0 and '"finished": 3' in out
+
+
 @pytest.mark.parametrize("flags,item", [
-    ([], "P7"),
-    (["--no-pipeline", "--arrivals", "poisson"], "P6/P7"),
-    (["--no-pipeline", "--sustained"], "P6/P7"),
-    (["--no-pipeline", "--prefix-cache"], "P9"),
-    (["--no-pipeline", "--tp", "2"], "P13"),
-    (["--no-pipeline", "--spec-decode"], "P10"),
-    (["--no-pipeline", "--trace-out", "t.json"], "P8"),
-    (["--no-pipeline", "--no-microbatch"], "P7"),
-    (["--no-pipeline", "--max-host-lanes", "2"], "P7"),
-    (["--no-pipeline", "--no-planahead"], "P7"),
-    (["--no-pipeline", "--slo-ttft", "5"], "P6/P7"),
-    (["--no-pipeline", "--slo-tpot", "0.5"], "P6/P7"),
-    (["--no-pipeline", "--spec-k", "2"], "P10"),
+    (["--prefix-cache"], "P9"),
+    (["--tp", "2"], "P13"),
+    (["--spec-decode"], "P10"),
+    (["--trace-out", "t.json"], "P8"),
+    (["--spec-k", "2"], "P10"),
 ])
 def test_cli_refuses_unported_options(flags, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -10,20 +10,25 @@ Phases, each of which fails the run by raising:
              all started together) and print each kernel's registers, shared
              memory and spills;
 2. kernel  — hold each kernel against its plain PyTorch version over a
-             shape/length/dtype sweep: paged decode attention and flash
-             prefill attention (each with a library yardstick,
+             shape/length/dtype sweep: paged decode attention (and a row's
+             output bitwise the same alone and in batches of 8 and 64) and
+             flash prefill attention (the bf16 tensor-core kernel and the
+             fp32 CUDA-core kernel; each with a library yardstick,
              scaled_dot_product_attention, which the port never calls), the
              RWKV6 chunked scan and the Mamba2 SSD chunked scan (ragged
              lengths, windows, P != N, strong decay and the full-width shapes
              included; no single PyTorch call computes either recurrence, so
              they have no library yardstick); time kernel and plain version
-             at the main path's shapes;
+             at the main path's shapes (paged decode also at 4, 8, 16 and 32
+             pages per range; flash prefill also at a FLOP-bound S = 4096
+             and in fp32);
 3. serve   — the port's paths, each driven through ``launch.serve`` with
              every kernel's launch counter zeroed just before and read just
              after: full-width qwen3-0.6b (bf16) through the serial paged
              engine with a device pool small enough that the neo policy must
              offload; the same trace and pools through the pipelined engine
-             (async swaps, host lanes, plan-ahead: the default ``serve``);
+             (async swaps, host lanes, plan-ahead: the default ``serve``),
+             whose bf16 tokens must equal the serial run's bitwise;
              a short open-loop run (``run_online``, Poisson arrivals) on the
              pipelined engine; then full-width rwkv6-7b and zamba2-7b (bf16)
              through the contiguous engine, whose every prefill runs the scan
@@ -176,8 +181,15 @@ def kernel_phase(torch):
                 raise AssertionError(f"paged_decode kernel disagrees with its plain "
                                      f"version ({dt_name}, case {c})")
 
+    row_invariance(torch, kern)
+
     # timings at the main path's shape (8 rows of the serve phase's lengths,
-    # bf16, full-width qwen3-0.6b heads) and at a long-context decode shape
+    # bf16, full-width qwen3-0.6b heads) and at a long-context decode shape,
+    # with the kernel also timed at other pages-per-split (the sweep that
+    # chose ops.PAGES_PER_SPLIT)
+    from repro_torch.kernels.paged_decode.ops import PAGES_PER_SPLIT
+    from repro_torch.kernels.paged_decode.ops import _launch as launch
+
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     timed = {}
     for label, B, lens in (("main", 8, [rng.randint(257, 800) for _ in range(8)]),
@@ -188,13 +200,53 @@ def kernel_phase(torch):
         t_k = time_ms(torch, lambda: kern(q, kp, vp, bt, ln), flush)
         t_p = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, bt, ln), flush)
         t_l = time_ms(torch, library_call(torch, q, kp, vp, bt, ln, 16), flush)
+        sweep = {pps: time_ms(torch, lambda: launch(q, kp, vp, bt, ln, pps), flush)
+                 for pps in (4, 8, 16, 32)}
         b_ms, b_by = bound(q, lens, 16, 8, 128)
         timed[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                            bound_by=b_by, max_abs_err=err, B=B, sum_lens=sum(lens))
+                            bound_by=b_by, max_abs_err=err, B=B, sum_lens=sum(lens),
+                            pages_per_split_ms=sweep)
         log(f"[kernel] timing {label}: B={B} H=16 KV=8 hd=128 bf16 sum(lens)={sum(lens)} "
             f"kernel={t_k:.4f} ms plain={t_p:.4f} ms library={t_l:.4f} ms "
-            f"bound={b_ms:.4f} ms ({b_by}) max_abs_err={err:.3e}")
+            f"bound={b_ms:.4f} ms ({b_by}) max_abs_err={err:.3e}; kernel at "
+            f"pages_per_split (default {PAGES_PER_SPLIT}): "
+            + ", ".join(f"{k}: {v:.4f} ms" for k, v in sweep.items()))
     return timed, worst
+
+
+def row_invariance(torch, kern):
+    """A row's output is bitwise the same alone and inside batches of 8 and
+    64 (other lengths, wider block tables), in fp32 and bf16: its page
+    ranges depend on its own length only."""
+    import random
+
+    rng = random.Random(3)
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        P, page = 4096, 16
+        kp = torch.randn(P, page, 8, 128, generator=g, device="cuda").to(dtype)
+        vp = torch.randn(P, page, 8, 128, generator=g, device="cuda").to(dtype)
+        q_row = torch.randn(16, 128, generator=g, device="cuda").to(dtype)
+        len_row = 1500
+        pages_row = torch.randperm(P, generator=g, device="cuda")[: -(-len_row // page)]
+        outs = []
+        for B, where, width in ((1, 0, 94), (8, 3, 128), (64, 50, 160)):
+            q = torch.randn(B, 16, 128, generator=g, device="cuda").to(dtype)
+            q[where] = q_row
+            lens = [rng.randint(0, width * page) for _ in range(B)]
+            lens[where] = len_row
+            bt = torch.randint(0, P, (B, width), generator=g, device="cuda", dtype=torch.int32)
+            bt[where, : len(pages_row)] = pages_row.to(torch.int32)
+            ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            outs.append(kern(q, kp, vp, bt.contiguous(), ln)[where].clone())
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(outs[0], o)) for o in outs[1:]]
+        log(f"[kernel] paged_decode {dt_name} row bitwise equal alone / in 8 / in 64: "
+            f"{[True] + same}")
+        if not all(same):
+            raise AssertionError(f"paged_decode ({dt_name}): a row's output changes with "
+                                 "its batch")
 
 
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
@@ -212,15 +264,15 @@ def prefill_pairs(S, causal, window):
     return total
 
 
-def flash_bound(q, k, causal, window):
+def flash_bound(q, k, causal, window, flops_per_s=BF16_FLOPS):
     """Each of q, k, v and the output once at 3.35 TB/s; the 4 hd FLOPs of
     QK^T and PV per (query, key) pair a head sees (half the square when
-    causal) at the bf16 tensor-core rate."""
+    causal) at ``flops_per_s`` (the bf16 tensor-core rate by default)."""
     B, S, H, hd = q.shape
     el = q.element_size()
     nbytes = 2 * q.numel() * el + 2 * k.numel() * el
     flops = 4 * hd * B * H * prefill_pairs(S, causal, window)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -258,31 +310,34 @@ def flash_sweep(torch, cases, seed):
     return worst
 
 
-def flash_time(torch, flush, label, B, S, H, KV, hd, window):
+def flash_time(torch, flush, label, B, S, H, KV, hd, window, dt_name="bfloat16"):
     """Kernel, plain version and SDPA (causal, GQA; the port never calls it)
-    at one shape in bf16, after holding the kernel to its plain version
-    there; window must not cut below S (SDPA runs causal)."""
+    at one shape in ``dt_name`` (bf16: the tensor-core kernel; fp32: the
+    CUDA-core kernel, its bound at the f32 rate), after holding the kernel
+    to its plain version there; window must not cut below S (SDPA runs
+    causal)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
     assert window == 0 or window >= S
-    q, k, v = flash_inputs(torch, B, S, H, KV, hd, torch.bfloat16, seed=7)
-    err = flash_check(torch, "bfloat16", dict(B=B, S=S, H=H, KV=KV, hd=hd, causal=True,
-                                              window=window), q, k, v)
+    q, k, v = flash_inputs(torch, B, S, H, KV, hd, getattr(torch, dt_name), seed=7)
+    err = flash_check(torch, dt_name, dict(B=B, S=S, H=H, KV=KV, hd=hd, causal=True,
+                                           window=window), q, k, v)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     t_k = time_ms(torch, lambda: flash_prefill(q, k, v, causal=True, window=window), flush)
     t_p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, causal=True, window=window), flush)
     t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                 enable_gqa=True), flush)
-    b_ms, b_by = flash_bound(q, k, True, window)
+    b_ms, b_by = flash_bound(q, k, True, window,
+                             BF16_FLOPS if dt_name == "bfloat16" else F32_FLOPS)
     log(f"[kernel] timing flash_prefill {label}: B={B} S={S} H={H} KV={KV} hd={hd} "
-        f"window={window} bf16 kernel={t_k:.4f} ms plain={t_p:.4f} ms sdpa={t_l:.4f} ms "
+        f"window={window} {dt_name} kernel={t_k:.4f} ms plain={t_p:.4f} ms sdpa={t_l:.4f} ms "
         f"bound={b_ms:.4f} ms ({b_by}) max_abs_err={err:.3e}")
     return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err, shape=f"B={B} S={S} H={H} KV={KV} hd={hd} causal "
-                f"window={window} bf16")
+                f"window={window} {dt_name}")
 
 
 def flash_kernel_phase(torch):
@@ -302,7 +357,12 @@ def flash_kernel_phase(torch):
     worst = flash_sweep(torch, cases, seed=200)
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     timed = {"qwen3": flash_time(torch, flush, "qwen3-0.6b", 1, 512, 16, 8, 128, 0),
-             "zamba2": flash_time(torch, flush, "zamba2-7b", 1, 512, 32, 32, 112, 32768)}
+             "zamba2": flash_time(torch, flush, "zamba2-7b", 1, 512, 32, 32, 112, 32768),
+             # FLOP-bound: the tensor-core rate
+             "long": flash_time(torch, flush, "long prompt", 1, 4096, 16, 8, 128, 0),
+             # the fp32 path's CUDA-core kernel at qwen3-0.6b's shape
+             "qwen3_fp32": flash_time(torch, flush, "qwen3-0.6b", 1, 512, 16, 8, 128, 0,
+                                      dt_name="float32")}
     del flush
     return timed, worst
 
@@ -590,8 +650,10 @@ def serve_summary(cfg, engine, m, launched, calls, card):
 
 def pipelined_phase(cfg, device, serial_engine, card):
     """The serial phase's trace and pools through the pipelined engine
-    (async swaps, host lanes, plan-ahead, micro-batching); its tokens are
-    compared with the serial phase's (a bitwise claim, reported)."""
+    (async swaps, host lanes, plan-ahead, micro-batching); its tokens must
+    equal the serial phase's bitwise (the reference's claim, which the
+    executor's row buckets and the paged decode kernel's per-row page
+    ranges make hold in bf16)."""
     engine, trace, m, launched, calls, _ = serve_phase(cfg, device, pipeline=True)
     s = engine.stats
     if s.pipelined_steps <= 0:
@@ -607,6 +669,9 @@ def pipelined_phase(cfg, device, serial_engine, card):
         same += sum(a == b for a, b in zip(req.out_tokens, ser))
     summary = serve_summary(cfg, engine, m, launched, calls, card)
     summary.update(tokens_equal_to_serial=same, tokens=total)
+    if same != total or total == 0:
+        raise AssertionError(f"pipelined phase: {same} of {total} bf16 tokens equal the "
+                             "serial phase's")
     return engine, summary
 
 
@@ -861,8 +926,15 @@ def main() -> int:
     log(f"[setup] {SSD_SOURCE.name}: dynamic shared memory per block "
         f"{smem_bytes(64)} bytes at N=64 (opted in above the 48 KiB static limit)")
     log(f"[setup] flash_prefill.cu: dynamic shared memory per block "
-        f"{flash_smem(128, torch.bfloat16)} bytes (bf16) / "
-        f"{flash_smem(128, torch.float32)} bytes (fp32) at hd=128 (opted in)")
+        f"{flash_smem(128, torch.bfloat16)} bytes (bf16, tensor-core kernel) / "
+        f"{flash_smem(128, torch.float32)} bytes (fp32, CUDA-core kernel) at hd=128 "
+        "(opted in)")
+    from repro_torch.kernels.paged_decode.ops import smem_bytes as decode_smem
+
+    log(f"[setup] paged_decode.cu: dynamic shared memory per block "
+        f"{decode_smem(128, 16, 2, torch.bfloat16)} bytes (bf16) / "
+        f"{decode_smem(128, 16, 2, torch.float32)} bytes (fp32) at hd=128, page 16, "
+        "qpk 2")
 
     # -- phase 2: kernels ----------------------------------------------------
     timed, worst = kernel_phase(torch)
@@ -889,7 +961,7 @@ def main() -> int:
     pipe, pipe_summary = pipelined_phase(cfg, "cuda", serial, card)
     log(json.dumps({"serve": pipe_summary}))
     log(f"[serve] pipelined vs serial bf16 tokens: {pipe_summary['tokens_equal_to_serial']}"
-        f" of {pipe_summary['tokens']} equal (a bitwise claim, reported, not a gate)")
+        f" of {pipe_summary['tokens']} equal (asserted)")
     pipe_launched = pipe_summary["kernel_launches"]
     del serial, pipe
     torch.cuda.empty_cache()
@@ -900,6 +972,8 @@ def main() -> int:
         summary, ssm_trace = ssm_serve_phase(torch, get_config(arch), "cuda")
         ssm[arch] = (summary, ssm_trace)
         log(json.dumps({"serve": {**summary, "card": card}}))
+
+    from repro_torch.kernels.paged_decode.ops import PAGES_PER_SPLIT
 
     main_t = timed["main"]
     q_t = flash_t["qwen3"]
@@ -920,6 +994,9 @@ def main() -> int:
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
         "shape": "B=8 H=16 KV=8 hd=128 page=16 bf16 sum(lens)=%d" % main_t["sum_lens"],
+        "pages_per_split": PAGES_PER_SPLIT,
+        "pages_per_split_ms": main_t["pages_per_split_ms"],
+        "long": timed["long"],
     }, {
         "name": "flash_prefill",
         "route": "cuda",
@@ -937,6 +1014,9 @@ def main() -> int:
         "bound_by": q_t["bound_by"],
         "library_ms": q_t["library_ms"],
         "shape": q_t["shape"],
+        "fp32_kernel_ms": flash_t["qwen3_fp32"]["ms"],
+        "fp32_plain_ms": flash_t["qwen3_fp32"]["plain_ms"],
+        "fp32_bound_ms": flash_t["qwen3_fp32"]["bound_ms"],
         "other_shapes": {k: v for k, v in flash_t.items() if k != "qwen3"},
     }, scan_entry("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",

@@ -30,10 +30,17 @@ batch-0's queued kernels, and the overlap would silently vanish.)  Cold
 prefill runs the flash prefill kernel once per layer on the padded batch.
 
 Per-row compute is independent of the other rows, so a row's logits do not
-depend on which rows share its batch (up to the matmul's choice of
-algorithm for a different row count; ROADMAP ground rule 3).  Row/page
-buckets for jit and tensor parallelism of the reference executor are not
-ported (ROADMAP P13).
+depend on which rows share its batch. As in the reference, every decode pass
+pads its rows to the bucket :func:`_bucket` (powers of two, at least 8): the
+GEMMs of the projections, FFN and logits then run at a bucket-sized row
+count, so the serial pass, batch-0 and each host lane hand cuBLAS the same M
+whenever their row counts share a bucket, and cuBLAS's choice of algorithm
+(and summation order), which depends on M, cannot move a row's bf16 logits
+(ROADMAP ground rule 3; on the H100, at qwen3-0.6b's widths, no decode GEMM
+changed a row's output across buckets 8-64 either: PERF.md). Padded rows carry token 0 at position 0 with
+``lens = 0``; they never write to a pool, never reach
+:class:`HostAttention`, and are dropped at the logits. The reference's page
+buckets for jit and its tensor parallelism are not ported (ROADMAP P13).
 
 :class:`ContiguousExecutor` (ssm and hybrid families, device-only) keeps one
 slot of a contiguous cache per active request and runs the model's own
@@ -59,6 +66,15 @@ from repro_torch.device import new_stream, on_stream
 from repro_torch.kernels.paged_decode import ops as paged_ops
 from repro_torch.models.layers import rms_norm, swiglu_apply
 from repro_torch.models.transformer import DenseLM, out_proj, project_qkv
+
+
+def _bucket(n: int) -> int:
+    """The reference's decode row bucket: the smallest power-of-two
+    multiple of 8 that holds ``n`` rows."""
+    b = 8
+    while b < n:
+        b *= 2
+    return b
 
 
 class PagedExecutor:
@@ -105,8 +121,9 @@ class PagedExecutor:
         [n_rows, V].  Page allocation for the new token must already be done
         (engine)."""
         n, page, dev = len(rows), self.page, self.device
-        tokens = np.zeros((n,), np.int64)
-        positions = np.zeros((n,), np.int64)
+        D = _bucket(n)  # rows n..D-1 are padding: token 0, position 0, lens 0
+        tokens = np.zeros((D,), np.int64)
+        positions = np.zeros((D,), np.int64)
         pids = np.zeros((n,), np.int64)
         offs = np.zeros((n,), np.int64)
         for i, r in enumerate(rows):
@@ -121,8 +138,8 @@ class PagedExecutor:
 
         # device rows: block tables over their pages, attend over pos + 1
         mp = max([len(rows[i].pages) for i in dev_idx] + [1])
-        tables = np.zeros((n, mp), np.int32)
-        lens = np.zeros((n,), np.int32)  # 0 for host rows: the kernel gives zeros
+        tables = np.zeros((D, mp), np.int32)
+        lens = np.zeros((D,), np.int32)  # 0 for host and pad rows: the kernel gives zeros
         for i in dev_idx:
             tables[i, : len(rows[i].pages)] = rows[i].pages
             lens[i] = positions[i] + 1
@@ -150,7 +167,7 @@ class PagedExecutor:
                 o[host_idx_t] = self._host_attention(
                     li, q[host_idx_t], k[host_idx_t], v[host_idx_t], h_meta, o.dtype)
             x = self._layer_post(blk, x, o)
-        return model.final_logits(x).cpu().numpy()
+        return model.final_logits(x)[:n].cpu().numpy()
 
     def _host_attention(self, li: int, q, k, v, meta, dtype) -> torch.Tensor:
         """TrQKV (one copy) -> CPU attention over the host pool -> TrO for
@@ -196,19 +213,23 @@ class PagedExecutor:
         :meth:`_host_attention` — and never touches the device KV pool, so
         it is safe beside :meth:`decode_batch0` and any other lane.  Each
         concurrently running caller must use a distinct ``lane``."""
-        dev = self.device
-        tokens = np.asarray([r.all_tokens[-1] for r in rows], np.int64)
-        positions = np.asarray([r.kv_len for r in rows], np.int64)
-        meta = self._host_meta(rows, positions, self.page)
+        dev, n = self.device, len(rows)
+        D = _bucket(n)  # rows n..D-1 are padding (see decode)
+        tokens = np.zeros((D,), np.int64)
+        positions = np.zeros((D,), np.int64)
+        tokens[:n] = [r.all_tokens[-1] for r in rows]
+        positions[:n] = [r.kv_len for r in rows]
+        meta = self._host_meta(rows, positions[:n], self.page)
         model = self.model
         with on_stream(self._lane_stream(lane)):
             x = model.embed_tokens(torch.from_numpy(tokens).to(dev))
             pos_t = torch.from_numpy(positions).to(dev)
             for li, blk in enumerate(model.layers):
                 q, k, v = self._layer_pre(blk, x, pos_t)
-                o = self._host_attention(li, q, k, v, meta, q.dtype)
+                o = torch.zeros_like(q)
+                o[:n] = self._host_attention(li, q[:n], k[:n], v[:n], meta, q.dtype)
                 x = self._layer_post(blk, x, o)
-            return model.final_logits(x).cpu().numpy()
+            return model.final_logits(x)[:n].cpu().numpy()
 
     def submit_host_lane(self, rows: List[Request], *,
                          pre: Optional[Callable[[], None]] = None,

@@ -1,18 +1,21 @@
-"""Wrapper of the flash prefill attention kernel.
+"""Wrapper of the flash prefill attention kernels.
 
 :func:`flash_prefill` takes the JAX package's layouts (q ``[B, S, H, hd]``,
 k/v ``[B, S, KV, hd]``) and checks dtype, device, shape and contiguity.  CPU
-tensors go to the plain version in :mod:`.ref`; CUDA tensors go to the
-hand-written kernel (``csrc/flash_prefill.cu``, built with nvcc and bound
-with ctypes), which launches on the current stream without synchronising.
-There is no fallback from the kernel to the plain version: a CUDA input the
-kernel cannot take, a failed build or a refused launch raises.  Unlike the
-TPU wrapper, nothing is padded: the kernel takes any S (the ragged last tile
-is masked) and, as they are, head dims up to 256 whose row is a whole number
-of 16-byte loads (a multiple of 8 in bf16, of 4 in fp32).
+tensors go to the plain version in :mod:`.ref`; CUDA tensors go to one of
+two hand-written kernels in ``csrc/flash_prefill.cu`` (built with nvcc and
+bound with ctypes), routed by dtype: bf16 to the tensor-core kernel (wgmma
+products, TMA-fed K/V ring; head_dim a multiple of 16, up to 256), fp32 to
+the CUDA-core kernel (f32 products, so the 2e-3 gate holds; head_dim up to
+256 in whole 16-byte loads, a multiple of 4).  Each launches on the current
+stream without synchronising.  There is no fallback: a CUDA input the
+kernel of its dtype cannot take, a failed build or a refused launch raises;
+nothing runs the plain version or the other kernel in its place.  Unlike
+the TPU wrapper, nothing is padded: any S is taken (the ragged last tile is
+masked).
 
 ``flash_prefill.launches`` counts kernel launches (one per call on CUDA
-tensors).
+tensors, either kernel).
 """
 
 from __future__ import annotations
@@ -31,9 +34,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_prefill.cu"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-MAX_GRID_YZ = 65535  # heads on grid.y, rows on grid.z
+MAX_GRID_YZ = 65535  # heads (bf16: kv heads x head pairs) on grid.y, rows on grid.z
 MAX_SMEM = 227 * 1024  # the opt-in dynamic shared memory of one block (sm_90)
-LOAD_BYTES = 16  # tiles are staged in shared memory with 16-byte loads
+LOAD_BYTES = 16  # tiles are staged in shared memory with 16-byte loads (and TMA rows)
+TC_K = 16  # bf16 kernel: wgmma's k-depth
+TC_CHUNK = 64  # bf16 kernel: head dims per 128-byte swizzled tile chunk
 
 
 def _check(q, k, v) -> None:
@@ -66,20 +71,34 @@ def _library():
 
 
 def smem_bytes(hd: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block: three [64, hd + pad] tiles (q, k,
-    v) in ``dtype`` and the [64, 65] f32 probabilities (the kernel's
-    formula; the wrapper checks it without building the kernel)."""
+    """Dynamic shared memory of one block of the kernel ``dtype`` takes (the
+    kernels' formulas; the wrapper checks them without building).  bf16:
+    1 KiB of alignment slack, the two consumer warpgroups' query tiles and
+    a ring of K and V tiles (3 stages up to hd = 128, else 2), each tile
+    [64][64 x ceil(hd / 64)] bf16, then the barriers.  fp32: three
+    [64, hd + 1] tiles (q, k, v) and the [64, 65] f32 probabilities."""
+    if dtype == torch.bfloat16:
+        nch = -(-hd // TC_CHUNK)
+        stages = 3 if nch <= 2 else 2
+        return 1024 + (2 + 2 * stages) * nch * 64 * TC_CHUNK * 2 + 128
     el = torch.empty((), dtype=dtype).element_size()
     return 3 * 64 * (hd + 4 // el) * el + 64 * 65 * 4
 
 
 def check_kernel_limits(q, k, v) -> None:
-    """Raise ValueError for inputs the kernel cannot take as they are."""
+    """Raise ValueError for inputs the kernel of q's dtype cannot take as
+    they are."""
     B, S, H, hd = q.shape
+    KV = k.shape[2]
     el = q.element_size()
-    if hd > MAX_HEAD_DIM or H > MAX_GRID_YZ or B > MAX_GRID_YZ:
-        raise ValueError(f"kernel limits: head_dim {hd} <= {MAX_HEAD_DIM}, heads {H} "
+    tc = q.dtype == torch.bfloat16
+    grid_y = KV * -(-(H // KV) // 2) if tc else H
+    if hd > MAX_HEAD_DIM or grid_y > MAX_GRID_YZ or B > MAX_GRID_YZ:
+        raise ValueError(f"kernel limits: head_dim {hd} <= {MAX_HEAD_DIM}, grid.y {grid_y} "
                          f"and rows {B} <= {MAX_GRID_YZ} (grid.y, grid.z)")
+    if tc and hd % TC_K:
+        raise ValueError(f"head_dim {hd} is not a multiple of {TC_K} (the bf16 kernel's "
+                         f"wgmma k-depth)")
     if hd * el % LOAD_BYTES:
         raise ValueError(f"head_dim {hd} x {el} bytes is not a multiple of "
                          f"{LOAD_BYTES} bytes (the kernel stages tiles with "

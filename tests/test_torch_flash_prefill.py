@@ -140,11 +140,20 @@ def test_wrapper_rejects_bad_inputs():
     ("float32", 30, 0, False),     # 120-byte rows
     ("bfloat16", 128, 4, False),   # 8 bytes off a 16-byte boundary
     ("bfloat16", 264, 0, False),   # head_dim past 256
+    ("bfloat16", 32, 0, True),     # bf16 tensor-core kernel: hd % 16 == 0
+    ("bfloat16", 48, 0, True),
+    ("bfloat16", 64, 0, True),
+    ("bfloat16", 256, 0, True),    # 4 chunks, 2 stages: 197,760 bytes
+    ("bfloat16", 40, 0, False),    # whole 16-byte rows, but no wgmma k-depth
+    ("bfloat16", 120, 0, False),
+    ("float32", 40, 0, True),      # the fp32 kernel takes it (no k-depth rule)
 ])
 def test_kernel_limits(dtype, hd, offset, ok):
-    """What the CUDA kernel takes as it is: rows of whole 16-byte loads,
-    16-byte aligned tensors, head_dim <= 256 (and its shared memory within
-    the card's opt-in limit); anything else is refused before a launch."""
+    """What the CUDA kernels take as they are: rows of whole 16-byte loads,
+    16-byte aligned tensors, head_dim <= 256, for bf16 (the tensor-core
+    kernel) head_dim a multiple of 16, and each kernel's shared memory
+    within the card's opt-in limit; anything else is refused before a
+    launch."""
     dt = getattr(torch, dtype)
     flat = torch.zeros(offset + 2 * 5 * 4 * hd, dtype=dt)
     q = flat[offset:].view(2, 5, 4, hd)
@@ -180,3 +189,50 @@ def test_cuda_kernel_matches_plain(shape, causal, window, cuda):
         assert ops.flash_prefill.launches == before + 1
         want = flash_prefill_ref(*args, causal=causal, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_smem_follows_the_kernel_of_each_dtype():
+    """bf16 blocks hold both warpgroups' query tiles and a K/V ring of 64-dim
+    chunks (3 stages up to hd = 128, 2 beyond); fp32 blocks the CUDA-core
+    kernel's padded tiles and probabilities."""
+    for hd, nch, stages in ((32, 1, 3), (112, 2, 3), (128, 2, 3), (192, 3, 2), (256, 4, 2)):
+        assert ops.smem_bytes(hd, torch.bfloat16) == (1024 + (2 + 2 * stages) * nch * 8192
+                                                      + 128)
+        assert ops.smem_bytes(hd, torch.bfloat16) <= ops.MAX_SMEM
+    assert ops.smem_bytes(128, torch.float32) == 3 * 64 * 129 * 4 + 64 * 65 * 4
+
+
+TC_HEADS = {1: (4, 4), 2: (8, 4), 7: (14, 2)}  # qpk -> (H, KV)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 48, 64, 112, 128])
+@pytest.mark.parametrize("qpk", [1, 2, 7])
+def test_cuda_bf16_tensor_core_sweep(hd, qpk, cuda):
+    """The bf16 tensor-core kernel against its plain version (2e-2) at every
+    head_dim it is built for and groups of 1 (two 64-row tiles of one head
+    per block), 2 (two heads per block) and 7 (a lone head in the last
+    pair), over ragged S, causal and not, and a window."""
+    H, KV = TC_HEADS[qpk]
+    for i, (B, S, causal, window) in enumerate([(2, 100, True, 0), (1, 200, False, 0),
+                                                 (1, 257, True, 48), (1, 64, True, 0)]):
+        arrs = _inputs(1000 * hd + 10 * qpk + i, B, S, H, KV, hd)
+        args = _port(arrs, "bfloat16", device=cuda)
+        before = ops.flash_prefill.launches
+        got = ops.flash_prefill(*args, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert ops.flash_prefill.launches == before + 1
+        want = flash_prefill_ref(*args, causal=causal, window=window)
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_refuses_what_the_tensor_cores_cannot_take(cuda):
+    """No fallback: a bf16 head_dim off wgmma's k-depth raises on the card
+    (nothing runs the plain version or the fp32 kernel instead)."""
+    q, k, v = _port(_inputs(3, 1, 64, 4, 2, 40), "bfloat16", device=cuda)
+    before = ops.flash_prefill.launches
+    with pytest.raises(ValueError):
+        ops.flash_prefill(q, k, v)
+    assert ops.flash_prefill.launches == before

@@ -1,14 +1,20 @@
 """The paged decode kernel on the card: held to its plain version over
 shapes that take the page-split and single-range paths (hd = 112 and a
-group of 7 included), and the engine's tokens through the kernel held to
-its tokens through the plain version.  These tests carry the ``cuda``
-marker and skip without a card; the page-split arithmetic is checked
-everywhere."""
+group of 7 included), a row's output bitwise the same in batches of 1, 8
+and 64, and the engine's tokens through the kernel held to its tokens
+through the plain version.  These tests carry the ``cuda`` marker and skip
+without a card; the page-split arithmetic is checked everywhere."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+try:
+    from hypothesis import given, settings, strategies as st
+    HAS_HYPOTHESIS = True
+except ImportError:  # pragma: no cover
+    HAS_HYPOTHESIS = False
 
 from repro_torch.kernels.paged_decode import ops  # noqa: E402
 from repro_torch.kernels.paged_decode.ref import paged_decode_ref  # noqa: E402
@@ -37,16 +43,36 @@ def _port(arrs, dtype, device):
     return q.to(dt), kp.to(dt), vp.to(dt), bt, lens
 
 
-def test_page_split_covers_every_page_once():
-    for rows_x_kv, max_pages in ((64, 50), (512, 128), (8, 129), (64, 4), (1, 1),
-                                 (2048, 128), (24, 3), (1, 300)):
-        n = ops.split_pages(rows_x_kv, max_pages, sm_count=132)
-        per = -(-max_pages // n)
-        assert 1 <= n <= max_pages
-        assert per * n >= max_pages > per * (n - 1)  # no empty trailing range
-        assert per >= min(ops.MIN_PAGES_PER_SPLIT, max_pages)
-        if rows_x_kv >= ops.BLOCKS_PER_SM * 132:
-            assert n == 1  # enough blocks already
+def _live_blocks(n_pages, grid_z, pps):
+    """The page ranges of the grid.z blocks of one row that do work (the
+    kernel's rule: block z covers [z pps, min((z + 1) pps, n_pages)))."""
+    return [(z * pps, min((z + 1) * pps, n_pages)) for z in range(grid_z)
+            if z * pps < n_pages]
+
+
+if HAS_HYPOTHESIS:
+    @settings(max_examples=200, deadline=None)
+    @given(st.lists(st.integers(0, 5000), min_size=1, max_size=64),
+           st.sampled_from([1, 4, 8, 16, 32, ops.PAGES_PER_SPLIT]),
+           st.sampled_from([8, 16, 32]))
+    def test_page_split_covers_every_page_once(lens, pps, page):
+        """Each row's ranges cover its pages once, in order, in runs of
+        ``pps`` (the last shorter), and depend on the row's own page count
+        only: the blocks of the batch's grid.z that do work for a row are
+        the row's ranges alone, whatever batch it is in."""
+        n_pages = [-(-n // page) for n in lens]
+        grid_z = max(1, len(ops.split_pages(max(n_pages), pps)))
+        for n in n_pages:
+            ranges = ops.split_pages(n, pps)
+            assert [p for a, b in ranges for p in range(a, b)] == list(range(n))
+            assert all(b - a == pps for a, b in ranges[:-1])
+            assert all(0 < b - a <= pps for a, b in ranges)
+            assert _live_blocks(n, grid_z, pps) == ranges
+            assert ranges == ops.split_pages(n, pps)  # alone: the same ranges
+else:  # pragma: no cover
+    @pytest.mark.skip(reason="hypothesis not installed")
+    def test_page_split_covers_every_page_once():
+        pass
 
 
 @pytest.mark.cuda
@@ -65,11 +91,60 @@ def test_cuda_kernel_matches_plain(shape, lens, cuda):
         got = ops.paged_decode_attention(*args)
         torch.cuda.synchronize()
         assert ops.paged_decode_attention.launches == before + 1
-        split = ops.split_pages(shape[0] * shape[2], shape[5], ops._sm_count(cuda.index or 0))
-        assert ops.paged_decode_attention.merge_launches == merges + (split > 1)
+        slots = len(ops.split_pages(shape[5]))  # grid.z: ranges of the widest table
+        assert ops.paged_decode_attention.merge_launches == merges + (slots > 1)
         want = paged_decode_ref(*args)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         assert not got[torch.as_tensor(lens, device=cuda) == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_row_bitwise_invariant_across_batches(dtype, cuda):
+    """A row's output is bitwise the same alone and at any place in batches
+    of 8 and 64 whose other rows have other lengths and wider block tables
+    (other grid.z, other merge launches): its ranges, and every sum its
+    output is made of, depend on its own length only."""
+    rng = np.random.default_rng(21)
+    H, KV, hd, page, P = 16, 8, 128, 16, 4096
+    dt = getattr(torch, dtype)
+    kp = torch.from_numpy(rng.normal(size=(P, page, KV, hd)).astype(np.float32)).to(cuda, dt)
+    vp = torch.from_numpy(rng.normal(size=(P, page, KV, hd)).astype(np.float32)).to(cuda, dt)
+    q_row = rng.normal(size=(H, hd)).astype(np.float32)
+    len_row = 1000  # 63 pages: several ranges, a ragged last page
+    pages_row = rng.permutation(P)[:-(-len_row // page)]
+    outs = []
+    for B, where, width in ((1, 0, 63), (8, 5, 130), (64, 40, 200)):
+        q = rng.normal(size=(B, H, hd)).astype(np.float32)
+        q[where] = q_row
+        lens = rng.integers(0, width * page + 1, size=B).astype(np.int32)
+        lens[where] = len_row
+        bt = rng.integers(0, P, size=(B, width)).astype(np.int32)
+        bt[where, : len(pages_row)] = pages_row
+        args = (torch.from_numpy(q).to(cuda, dt), kp, vp, torch.from_numpy(bt).to(cuda),
+                torch.from_numpy(lens).to(cuda))
+        out = ops.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), paged_decode_ref(*args).float(),
+                                   rtol=2e-2, atol=2e-2)
+        outs.append(out[where].clone())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+def test_cuda_smem_formula_matches_kernel(cuda):
+    """The wrapper's shared-memory formula (checked before a launch) is the
+    kernel's own."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load(ops.SOURCE).paged_decode_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    for hd, page, qpk in ((128, 16, 2), (112, 16, 7), (32, 8, 4), (256, 32, 1)):
+        for code, dt in ((0, torch.float32), (1, torch.bfloat16)):
+            assert fn(hd, page, qpk, code) == ops.smem_bytes(hd, page, qpk, dt)
 
 
 @pytest.mark.cuda

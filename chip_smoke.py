@@ -15,13 +15,17 @@ Phases, each of which fails the run by raising:
              flash prefill attention (the bf16 tensor-core kernel and the
              fp32 CUDA-core kernel; each with a library yardstick,
              scaled_dot_product_attention, which the port never calls), the
-             RWKV6 chunked scan and the Mamba2 SSD chunked scan (ragged
-             lengths, windows, P != N, strong decay and the full-width shapes
-             included; no single PyTorch call computes either recurrence, so
-             they have no library yardstick); time kernel and plain version
-             at the main path's shapes (paged decode also at 4, 8, 16 and 32
-             pages per range; flash prefill also at a FLOP-bound S = 4096
-             and in fp32);
+             RWKV6 chunked scan and the Mamba2 SSD chunked scan (three
+             launches each: chunk states, state passing, chunk outputs;
+             ragged lengths, T = 1, 15 and 4096, three rows, 113 heads,
+             P != N, strong decay and the full-width shapes included, each
+             case also bitwise equal over two calls; no single PyTorch call
+             computes either recurrence, so they have no library
+             yardstick); time kernel and plain version at the main path's
+             shapes (paged decode also at 4, 8, 16 and 32 pages per range;
+             flash prefill also at a FLOP-bound S = 4096 and in fp32; the
+             scans also in fp32 and at T = 4096, with each stage's device
+             time from torch.profiler);
 3. serve   — the port's paths, each driven through ``launch.serve`` with
              every kernel's launch counter zeroed just before and read just
              after: full-width qwen3-0.6b (bf16) through the serial paged
@@ -32,8 +36,9 @@ Phases, each of which fails the run by raising:
              a short open-loop run (``run_online``, Poisson arrivals) on the
              pipelined engine; then full-width rwkv6-7b and zamba2-7b (bf16)
              through the contiguous engine, whose every prefill runs the scan
-             kernel once per layer (and zamba2's shared attention the flash
-             prefill kernel once per application); random weights from a
+             kernel once per layer, three stage launches each (and zamba2's
+             shared attention the flash prefill kernel once per
+             application); random weights from a
              seeded torch.Generator;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
@@ -55,6 +60,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -417,59 +423,106 @@ def mamba2_inputs(torch, B, T, H, P, N, dtype, seed, strong=False):
     return x, dt, A, Bm, Cm, D, s0
 
 
-def scan_bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def scan_bound(nbytes, flops, dtype):
+    """Least time for the work: bytes at 3.35 TB/s, or the recurrence's
+    operations at the peak of the unit that runs the kernel's products (the
+    bf16 tensor cores, or f32 FFMA)."""
+    peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def rwkv6_bound(args):
-    """Each input and output byte once; 4 N^2 FLOPs per token per head (the
-    recurrence's own count: y = r.(S + u k v^T) and S <- w S + k v^T), f32."""
+    """Each input and output byte once; 4 N^2 operations per token per head
+    (the recurrence's own count: y = r.(S + u k v^T) and S <- w S + k v^T)."""
     r, k, v, w, u, s0 = args
     B, T, H, N = r.shape
     nbytes = sum(t.numel() * t.element_size() for t in args) + r.numel() * r.element_size() \
         + s0.numel() * 4
-    return scan_bound(nbytes, 4 * N * N * B * T * H)
+    return scan_bound(nbytes, 4 * N * N * B * T * H, str(r.dtype).split(".")[-1])
 
 
 def mamba2_bound(args):
-    """Each input and output byte once; 5 N P FLOPs per token per head (the
-    recurrence's own count: S <- a S + B (dt x), y = C.S), f32."""
+    """Each input and output byte once; 5 N P operations per token per head
+    (the recurrence's own count: S <- a S + B (dt x), y = C.S)."""
     x, dt, A, Bm, Cm, D, s0 = args
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     nbytes = sum(t.numel() * t.element_size() for t in args) + x.numel() * x.element_size() \
         + s0.numel() * 4
-    return scan_bound(nbytes, 5 * N * P * B * T * H)
+    return scan_bound(nbytes, 5 * N * P * B * T * H, str(x.dtype).split(".")[-1])
 
 
-def scan_phase(torch, name, kern, plain, make, cases, full, bound):
+def stage_ms(torch, fn, flush, prefix, n=20):
+    """Device time of each of the kernel's stages per launch (torch.profiler,
+    L2 flushed before each call; every call launches each stage once), by
+    kernel name.  Averaged over the launches the profiler recorded, which
+    may be fewer than ``n``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"\b(" + prefix + r"\w+)", e.key)  # e.g. "...::ssd_states<...>(...)"
+        if m and e.count:
+            t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            out[m.group(1)] = t / e.count / 1e3
+    return out
+
+
+def scan_time(torch, name, kern, plain, make, shape, dt_name, bound, prefix, flush):
+    """Kernel and plain version at ``shape``: median ms each (``time_ms``),
+    the kernel's stages by the profiler, the bound, the largest error."""
+    args = make(torch, dtype=getattr(torch, dt_name), seed=9, **shape)
+    got, want = kern(*args), plain(*args)
+    err = max(float((got[0].float() - want[0].float()).abs().max()),
+              float((got[1] - want[1]).abs().max()))
+    t_k = time_ms(torch, lambda: kern(*args), flush)
+    t_p = time_ms(torch, lambda: plain(*args), flush)
+    stages = stage_ms(torch, lambda: kern(*args), flush, prefix)
+    b_ms, b_by = bound(args)
+    log(f"[kernel] timing {name}: {shape} {dt_name} kernel={t_k:.4f} ms plain={t_p:.4f} ms "
+        f"bound={b_ms:.4f} ms ({b_by}) library=none max_abs_err={err:.3e} stages_ms="
+        + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    return dict(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, stages_ms=stages, shape=shape, dtype=dt_name)
+
+
+def scan_phase(torch, name, kern, plain, make, cases, full, long, bound, prefix):
     """Sweep ``cases`` (dicts of ``make``'s shape keywords) in f32 and bf16,
-    then time kernel and plain version at the ``full`` shape in bf16."""
+    each kernel output held to the plain version and bitwise equal over two
+    calls; then time kernel and plain version at the ``full`` shape in bf16
+    and f32 and at the ``long`` one in bf16 (the state walk's cost)."""
     worst = {}
     for dt_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dt_name)
         for i, c in enumerate(cases):
             args = make(torch, dtype=dtype, seed=100 + i, **c)
             got = kern(*args)
+            again = kern(*args)
             torch.cuda.synchronize()
             want = plain(*args)
-            err = _close(torch, name, dt_name, c, [("y", got[0], want[0]), ("state", got[1], want[1])])
+            err = _close(torch, name, dt_name, c,
+                         [("y", got[0], want[0]), ("state", got[1], want[1])])
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                raise AssertionError(f"{name} ({dt_name}, case {c}): two calls on the same "
+                                     "inputs differ")
             worst[dt_name] = max(worst.get(dt_name, 0.0), err)
-            log(f"[kernel] {name} {dt_name} {c} max_abs_err={err:.3e} tol={TOL[dt_name]} ok")
+            log(f"[kernel] {name} {dt_name} {c} max_abs_err={err:.3e} tol={TOL[dt_name]} "
+                "ok, bitwise equal over two calls")
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    args = make(torch, dtype=torch.bfloat16, seed=9, **full)
-    got, want = kern(*args), plain(*args)
-    err = max(float((got[0].float() - want[0].float()).abs().max()),
-              float((got[1] - want[1]).abs().max()))
-    t_k = time_ms(torch, lambda: kern(*args), flush)
-    t_p = time_ms(torch, lambda: plain(*args), flush)
-    b_ms, b_by = bound(args)
-    log(f"[kernel] timing {name}: {full} bf16 kernel={t_k:.4f} ms plain={t_p:.4f} ms "
-        f"bound={b_ms:.4f} ms ({b_by}) library=none max_abs_err={err:.3e}")
+    t = scan_time(torch, name, kern, plain, make, full, "bfloat16", bound, prefix, flush)
+    t["fp32"] = scan_time(torch, name, kern, plain, make, full, "float32", bound, prefix, flush)
+    t["long"] = scan_time(torch, name, kern, plain, make, long, "bfloat16", bound, prefix, flush)
+    t["max_abs_err_sweep"] = worst
     del flush
-    return dict(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=err, max_abs_err_sweep=worst, shape=full), worst
+    return t, worst
 
 
 def rwkv6_kernel_phase(torch):
@@ -479,23 +532,40 @@ def rwkv6_kernel_phase(torch):
     cases = [dict(B=1, T=32, H=2, N=16), dict(B=2, T=64, H=4, N=32),  # test_kernels.py:100
              dict(B=1, T=100, H=2, N=16),  # ragged T
              dict(B=2, T=40, H=3, N=64, strong=True),  # strong decay, ragged
+             dict(B=1, T=1, H=4, N=64), dict(B=1, T=15, H=4, N=64),  # one token, one part-chunk
+             dict(B=1, T=4096, H=4, N=64),  # 64 state chunks
+             dict(B=3, T=100, H=113, N=64),  # three rows, many heads
              dict(B=1, T=512, H=64, N=64), dict(B=1, T=768, H=64, N=64)]  # full width
     return scan_phase(torch, "rwkv6_scan", rwkv6_scan,
                       lambda *a: rwkv6_chunked(*a, chunk=CHUNK), rwkv6_inputs, cases,
-                      dict(B=1, T=512, H=64, N=64), rwkv6_bound)
+                      dict(B=1, T=512, H=64, N=64), dict(B=1, T=4096, H=64, N=64), rwkv6_bound,
+                      "rwkv_")
 
 
 def mamba2_kernel_phase(torch):
-    from repro_torch.kernels.mamba2_ssd.ops import CHUNK, mamba2_ssd
+    from repro_torch.kernels.mamba2_ssd.ops import CHUNK, _launch, mamba2_ssd
     from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked
 
     cases = [dict(B=1, T=32, H=2, P=16, N=16), dict(B=2, T=64, H=2, P=32, N=32),  # :137
              dict(B=1, T=100, H=3, P=32, N=16),  # ragged T, P != N (the smoke shape)
              dict(B=2, T=130, H=4, P=24, N=40, strong=True),  # strong decay, P != N
+             dict(B=1, T=1, H=4, P=64, N=64), dict(B=1, T=15, H=4, P=64, N=64),
+             dict(B=1, T=4096, H=8, P=64, N=64),  # 64 chunks
+             dict(B=3, T=100, H=113, P=64, N=64),  # three rows, a partial group of heads
              dict(B=1, T=512, H=112, P=64, N=64), dict(B=1, T=768, H=112, P=64, N=64)]
-    return scan_phase(torch, "mamba2_ssd", mamba2_ssd,
-                      lambda *a: mamba2_ssd_chunked(*a, chunk=CHUNK), mamba2_inputs, cases,
-                      dict(B=1, T=512, H=112, P=64, N=64), mamba2_bound)
+    t, worst = scan_phase(torch, "mamba2_ssd", mamba2_ssd,
+                          lambda *a: mamba2_ssd_chunked(*a, chunk=CHUNK), mamba2_inputs, cases,
+                          dict(B=1, T=512, H=112, P=64, N=64),
+                          dict(B=1, T=4096, H=112, P=64, N=64), mamba2_bound, "ssd_")
+    # heads per block of stages 1 and 3 (ops.HEADS_PER_BLOCK is the default)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    args = mamba2_inputs(torch, B=1, T=512, H=112, P=64, N=64, dtype=torch.bfloat16, seed=9)
+    t["heads_per_block_ms"] = {hg: time_ms(torch, lambda: _launch(*args, heads_per_block=hg),
+                                           flush) for hg in (1, 2, 4, 8)}
+    log("[kernel] timing mamba2_ssd by heads per block (bf16, full shape): "
+        + json.dumps({k: round(v, 4) for k, v in t["heads_per_block_ms"].items()}))
+    del flush
+    return t, worst
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +583,9 @@ def counters():
     return {"paged_decode": paged_decode_attention.launches,
             "paged_decode_merge": paged_decode_attention.merge_launches,
             "flash_prefill": flash_prefill.launches,
-            "rwkv6_scan": rwkv6_scan.launches, "mamba2_ssd": mamba2_ssd.launches}
+            "rwkv6_scan": rwkv6_scan.launches, "mamba2_ssd": mamba2_ssd.launches,
+            "rwkv6_scan_stages": rwkv6_scan.stage_launches,
+            "mamba2_ssd_stages": mamba2_ssd.stage_launches}
 
 
 def zero_counters() -> None:
@@ -527,6 +599,8 @@ def zero_counters() -> None:
     flash_prefill.launches = 0
     rwkv6_scan.launches = 0
     mamba2_ssd.launches = 0
+    rwkv6_scan.stage_launches = 0
+    mamba2_ssd.stage_launches = 0
 
 
 def engine_config(device_pages, host_pages, *, pipeline=False):
@@ -811,6 +885,7 @@ def ssm_serve_phase(torch, cfg, device, *, n=8):
     name = SSM_KERNEL[cfg.family]
     want = {k: 0 for k in launched}
     want[name] = cfg.num_layers * calls[0]
+    want[name + "_stages"] = 3 * want[name]  # chunk states, state passing, chunk outputs
     if cfg.family == "hybrid":  # one shared-attention prefill per application
         want["flash_prefill"] = engine.model.n_attn_apps * calls[0]
     if launched != want or calls[0] != n:
@@ -882,12 +957,19 @@ def ssm_parity_phase(torch, cfg, device, trace):
                 worst_tie_gap=worst_gap)
 
 
-def scan_entry(name, source, replaces, launches, t, shape):
+def scan_entry(name, source, replaces, launched, t, shape):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": t["max_abs_err"],
-            "max_abs_err_sweep": t["max_abs_err_sweep"], "ms": t["ms"], "kernel_ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "library_note": NO_LIBRARY, "shape": shape}
+            "launches": launched[name], "stage_launches": launched[name + "_stages"],
+            "max_abs_err": t["max_abs_err"], "max_abs_err_sweep": t["max_abs_err_sweep"],
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "library_note": NO_LIBRARY, "shape": shape, "stages_ms": t["stages_ms"],
+            "fp32": {k: t["fp32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "max_abs_err", "stages_ms")},
+            "long": {k: t["long"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "max_abs_err", "stages_ms", "shape")},
+            **({"heads_per_block_ms": t["heads_per_block_ms"]} if "heads_per_block_ms" in t
+               else {})}
 
 
 def main() -> int:
@@ -920,11 +1002,14 @@ def main() -> int:
                     or ("spill" in line and " 0 bytes spill stores" not in line)):
                 log(f"[setup] {src.name}: {line.strip()}")
     from repro_torch.kernels.flash_prefill.ops import smem_bytes as flash_smem
-    from repro_torch.kernels.mamba2_ssd.ops import SOURCE as SSD_SOURCE
-    from repro_torch.kernels.mamba2_ssd.ops import smem_bytes
+    from repro_torch.kernels.mamba2_ssd.ops import smem_bytes as ssd_smem
+    from repro_torch.kernels.rwkv6_scan.ops import smem_bytes as rwkv_smem
 
-    log(f"[setup] {SSD_SOURCE.name}: dynamic shared memory per block "
-        f"{smem_bytes(64)} bytes at N=64 (opted in above the 48 KiB static limit)")
+    for src, fn in (("mamba2_ssd.cu", ssd_smem), ("rwkv6_scan.cu", rwkv_smem)):
+        log(f"[setup] {src}: dynamic shared memory per block at N=64, stages 1 / 2 / 3: "
+            + ", ".join(f"{dt}: " + " / ".join(str(fn(64, getattr(torch, dt), st))
+                                                for st in (1, 2, 3))
+                        for dt in ("bfloat16", "float32")) + " bytes (opted in)")
     log(f"[setup] flash_prefill.cu: dynamic shared memory per block "
         f"{flash_smem(128, torch.bfloat16)} bytes (bf16, tensor-core kernel) / "
         f"{flash_smem(128, torch.float32)} bytes (fp32, CUDA-core kernel) at hd=128 "
@@ -1020,11 +1105,11 @@ def main() -> int:
         "other_shapes": {k: v for k, v in flash_t.items() if k != "qwen3"},
     }, scan_entry("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",
-                  ssm["rwkv6-7b"][0]["kernel_launches"]["rwkv6_scan"], rwkv6_t,
+                  ssm["rwkv6-7b"][0]["kernel_launches"], rwkv6_t,
                   "B=1 T=512 H=64 N=64 bf16 r/k/v, f32 w/u/state"),
         scan_entry("mamba2_ssd", "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
                    "src/repro/kernels/mamba2_ssd/kernel.py:86",
-                   ssm["zamba2-7b"][0]["kernel_launches"]["mamba2_ssd"], ssd_t,
+                   ssm["zamba2-7b"][0]["kernel_launches"], ssd_t,
                    "B=1 T=512 H=112 P=64 N=64 bf16 x/B/C, f32 dt/A/D/state")]}))
 
     # -- phase 4: parity on the card -----------------------------------------

@@ -4,17 +4,21 @@
 ``[B, T, H]``, A and D ``[H]``, B/C ``[B, T, N]``, state ``[B, H, N, P]``)
 and checks dtype, device, shape and contiguity.  CPU tensors go to the plain
 version in :mod:`.ref`; CUDA tensors go to the hand-written kernel
-(``csrc/mamba2_ssd.cu``, built with nvcc and bound with ctypes), which
-launches on the current stream without synchronising.  There is no
-fallback from the kernel to the plain version: a CUDA input the kernel
-cannot take, a failed build or a refused launch raises.  The kernel takes
-any T (the tail chunk is masked), any P and any N <= 128; x, B and C in
-float32 or bfloat16 (one dtype), dt, A, D and the state in float32.  Unlike
+(``csrc/mamba2_ssd.cu``, built with nvcc and bound with ctypes): three
+chunk-parallel stages (chunk states, state passing, chunk outputs), which
+launch on the current stream without synchronising and share f32 scratch
+that this wrapper allocates.  There is no fallback from the kernel to the
+plain version: a CUDA input the kernel cannot take, a failed build or a
+refused launch raises.  The kernel takes any T (the tail chunk is masked),
+any P and any N <= 128; x, B and C in float32 or bfloat16 (one dtype), dt,
+A, D and the state in float32.  Unlike
 the TPU wrapper, ``x·dt`` and ``dt·A`` are formed inside the kernel and
 the ``D·x`` skip is added there too, before y is rounded to x's dtype.
 
-``mamba2_ssd.launches`` counts kernel launches (one per call on CUDA
-tensors).  :func:`mamba2_decode_step` is the plain single-token recurrence
+``mamba2_ssd.launches`` counts calls that launched the kernel (one per call
+on CUDA tensors); ``mamba2_ssd.stage_launches`` counts the stages launched
+(three per call, one when T = 0: only the state pass runs).
+:func:`mamba2_decode_step` is the plain single-token recurrence
 (the reference's ``ops.mamba2_decode_step``; no TPU kernel behind it).
 """
 
@@ -35,6 +39,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_ssd.cu"
 CHUNK = 64  # tokens per chunk, fixed in the kernel (kChunk)
 MAX_N = 128  # state size the kernel's shared-memory tiles hold
 MAX_GRID_YZ = 65535  # heads on grid.y, rows on grid.z
+HEADS_PER_BLOCK = 4  # heads of one (row, chunk) that a block of stages 1 and 3 walks
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -67,21 +72,22 @@ def _check(x, dt, A, Bm, Cm, D, state0) -> None:
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load(SOURCE).mamba2_ssd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(N: int) -> int:
-    """Dynamic shared memory the kernel asks for per block at state size N
-    (built on first use)."""
+def smem_bytes(N: int, dtype: torch.dtype = torch.bfloat16, stage: int = 3) -> int:
+    """Dynamic shared memory a block of ``stage`` (1, 2 or 3) asks for at
+    state size N and x's ``dtype`` (built on first use)."""
     fn = _build.load(SOURCE).mamba2_ssd_smem_bytes
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_size_t
-    return int(fn(N))
+    return int(fn(N, _DTYPE_CODE[dtype], stage))
 
 
-def _launch(x, dt, A, Bm, Cm, D, state0) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(x, dt, A, Bm, Cm, D, state0,
+            heads_per_block=HEADS_PER_BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     if N > MAX_N or H > MAX_GRID_YZ or B > MAX_GRID_YZ:
@@ -92,14 +98,23 @@ def _launch(x, dt, A, Bm, Cm, D, state0) -> Tuple[torch.Tensor, torch.Tensor]:
     if B == 0 or H == 0 or P == 0:
         return y, sT
     fn = _kernel()
+    n_chunks = -(-T // CHUNK)
+    # stage 1 writes each chunk's state contribution L here, stage 2 the
+    # chunk's incoming state over it, stage 3 reads it: [B, chunks, H, N, P
+    # rounded up to 4]; tot holds each chunk's total log decay
+    scratch = torch.empty(B * n_chunks * H * N * (-(-P // 4) * 4), dtype=torch.float32,
+                          device=x.device)
+    tot = torch.empty(B * n_chunks * H, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                  D.data_ptr(), state0.data_ptr(), y.data_ptr(), sT.data_ptr(),
-                 B, T, H, P, N, _DTYPE_CODE[x.dtype], stream)
+                 scratch.data_ptr(), tot.data_ptr(),
+                 B, T, H, P, N, _DTYPE_CODE[x.dtype], heads_per_block, stream)
     if err != 0:
         raise RuntimeError(f"mamba2_ssd kernel launch failed: cudaError_t {err}")
     mamba2_ssd.launches += 1
+    mamba2_ssd.stage_launches += 3 if n_chunks else 1
     return y, sT
 
 
@@ -123,6 +138,7 @@ def mamba2_ssd(
 
 
 mamba2_ssd.launches = 0
+mamba2_ssd.stage_launches = 0
 
 
 def mamba2_decode_step(

@@ -4,15 +4,19 @@
 u ``[H, N]``, state ``[B, H, N(key), N(value)]``) and checks dtype, device,
 shape and contiguity.  CPU tensors go to the plain version in :mod:`.ref`;
 CUDA tensors go to the hand-written kernel (``csrc/rwkv6_scan.cu``, built
-with nvcc and bound with ctypes), which launches on the current stream
-without synchronising.  There is no fallback from the kernel to the plain
-version: a CUDA input the kernel cannot take, a failed build or a refused
+with nvcc and bound with ctypes): three chunk-parallel stages (chunk states,
+state passing, chunk outputs) that hand the state on every ``STATE_CHUNK``
+tokens, launch on the current stream without synchronising and share f32
+scratch that this wrapper allocates.  There is no fallback from the kernel
+to the plain version: a CUDA input the kernel cannot take, a failed build or a refused
 launch raises.  The kernel takes any T (the tail chunk is masked) and any
 head size N <= 128; r/k/v in float32 or bfloat16, w, u and the state in
 float32.
 
-``rwkv6_scan.launches`` counts kernel launches (one per call on CUDA
-tensors).  :func:`rwkv6_decode_step` is the plain single-token recurrence
+``rwkv6_scan.launches`` counts calls that launched the kernel (one per call
+on CUDA tensors); ``rwkv6_scan.stage_launches`` counts the stages launched
+(three per call, one when T = 0: only the state pass runs).
+:func:`rwkv6_decode_step` is the plain single-token recurrence
 (the reference's ``ops.rwkv6_decode_step``; no TPU kernel behind it).
 """
 
@@ -26,11 +30,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked
+from repro_torch.kernels.rwkv6_scan.ref import STATE_CHUNK, rwkv6_chunked
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
 
-CHUNK = 16  # tokens per chunk, fixed in the kernel (kChunk)
+CHUNK = 16  # tokens per chunk of the plain version (the TPU kernel's chunk)
 MAX_N = 128  # head size the kernel's shared-memory tiles hold
 MAX_GRID_YZ = 65535  # heads on grid.y, rows on grid.z
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,9 +65,18 @@ def _check(r, k, v, w, u, state0) -> None:
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load(SOURCE).rwkv6_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(N: int, dtype: torch.dtype = torch.bfloat16, stage: int = 3) -> int:
+    """Dynamic shared memory a block of ``stage`` (1, 2 or 3) asks for at
+    head size N and r's ``dtype`` (built on first use)."""
+    fn = _build.load(SOURCE).rwkv6_scan_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_size_t
+    return int(fn(N, _DTYPE_CODE[dtype], stage))
 
 
 def _launch(r, k, v, w, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,14 +89,22 @@ def _launch(r, k, v, w, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
     if B == 0 or H == 0 or N == 0:
         return y, sT
     fn = _kernel()
+    n_chunks = -(-T // STATE_CHUNK)
+    # stage 1 writes each chunk's state contribution L here, stage 2 the
+    # chunk's incoming state over it, stage 3 reads it: [B, chunks, H, N, N
+    # rounded up to 4]; tot holds each chunk's total log decay per key row
+    scratch = torch.empty(B * n_chunks * H * N * (-(-N // 4) * 4), dtype=torch.float32,
+                          device=r.device)
+    tot = torch.empty(B * n_chunks * H * N, dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                 state0.data_ptr(), y.data_ptr(), sT.data_ptr(),
-                 B, T, H, N, _DTYPE_CODE[r.dtype], stream)
+                 state0.data_ptr(), y.data_ptr(), sT.data_ptr(), scratch.data_ptr(),
+                 tot.data_ptr(), B, T, H, N, _DTYPE_CODE[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: cudaError_t {err}")
     rwkv6_scan.launches += 1
+    rwkv6_scan.stage_launches += 3 if n_chunks else 1
     return y, sT
 
 
@@ -106,6 +127,7 @@ def rwkv6_scan(
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.stage_launches = 0
 
 
 def rwkv6_decode_step(

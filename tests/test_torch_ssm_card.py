@@ -1,7 +1,9 @@
 """The RWKV6 and Mamba2 scan kernels on the card: each held to its plain
-version on four shapes in both dtypes (ragged T, P != N and a strong decay
-included), and the contiguous engine's tokens through the kernels held to
-its tokens through the plain versions.  These tests carry the ``cuda``
+version in both dtypes (ragged T, T = 1, T = 15, T = 4096, B = 3, a
+partial head group, P != N, widths off the 16-byte copy path, a strong decay
+and the full-width shapes included), bitwise equal over two calls, its
+launch and stage counters, and the contiguous engine's tokens through the
+kernels held to its tokens through the plain versions.  These tests carry the ``cuda``
 marker and skip without a card; the concurrent build is checked everywhere
 with a stand-in compiler."""
 
@@ -103,6 +105,12 @@ def _hold(kern, plain, args, dtype_name):
     ((1, 100, 2, 16), False),    # ragged T
     ((2, 40, 3, 64), True),      # strong decay: pair decays at the clip
     ((1, 300, 8, 128), False),   # the largest head the kernel takes
+    ((1, 1, 4, 64), False),      # one token
+    ((1, 15, 4, 64), False),     # one partial chunk
+    ((1, 4096, 4, 64), False),   # 64 state chunks
+    ((3, 100, 113, 32), False),  # three rows, many heads
+    ((2, 70, 2, 20), False),     # N off the 16-byte copy path in bf16
+    ((1, 512, 64, 64), False),   # rwkv6-7b at full width
 ])
 def test_rwkv6_kernel_matches_plain(shape, strong, dtype, cuda):
     args = _rwkv6(31, *shape, getattr(torch, dtype), cuda, strong)
@@ -116,11 +124,50 @@ def test_rwkv6_kernel_matches_plain(shape, strong, dtype, cuda):
     ((1, 100, 3, 32, 16), False),   # ragged T, P != N (the smoke shape)
     ((2, 130, 4, 24, 40), True),    # strong decay, P a partial tile
     ((1, 200, 4, 64, 128), False),  # the largest state the kernel takes
+    ((1, 1, 4, 64, 64), False),     # one token
+    ((1, 15, 4, 64, 64), False),    # one partial chunk
+    ((1, 4096, 8, 64, 64), False),  # 64 chunks
+    ((3, 100, 113, 64, 64), False),  # three rows, a partial group of heads
+    ((1, 70, 3, 130, 20), False),   # P over one tile and off the 16-byte copy path
+    ((1, 512, 112, 64, 64), False),  # zamba2-7b at full width
 ])
 def test_mamba2_kernel_matches_plain(shape, strong, dtype, cuda):
     args = _mamba2(32, *shape, getattr(torch, dtype), cuda, strong)
     _hold(ssd_ops.mamba2_ssd, lambda *a: mamba2_ssd_chunked(*a, chunk=ssd_ops.CHUNK), args,
           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel,make,shape", [
+    (rwkv_ops.rwkv6_scan, _rwkv6, (1, 512, 64, 64)),
+    (ssd_ops.mamba2_ssd, _mamba2, (1, 512, 112, 64, 64))])
+def test_kernel_is_deterministic(kernel, make, shape, dtype, cuda):
+    """No atomics and a fixed summation order: two calls on the same inputs
+    give bitwise equal outputs and states."""
+    args = make(35, *shape, getattr(torch, dtype), cuda)
+    y1, s1 = kernel(*args)
+    y2, s2 = kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,make,shape", [
+    (rwkv_ops.rwkv6_scan, _rwkv6, (2, 'T', 3, 32)),
+    (ssd_ops.mamba2_ssd, _mamba2, (2, 'T', 3, 32, 16))])
+def test_kernel_counts_calls_and_stages(kernel, make, shape, cuda):
+    """``launches`` counts calls that launched, ``stage_launches`` the stages:
+    three per call, one (the state pass alone) when T = 0, whose final
+    state is the initial one."""
+    for T, stages in ((100, 3), (0, 1)):
+        args = make(36, *(T if d == 'T' else d for d in shape), torch.float32, cuda)
+        calls, launched = kernel.launches, kernel.stage_launches
+        y, sT = kernel(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == calls + 1 and kernel.stage_launches == launched + stages
+        if T == 0:
+            assert y.numel() == 0 and torch.equal(sT, args[-1])
 
 
 @pytest.mark.cuda

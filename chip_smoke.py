@@ -18,7 +18,8 @@ Phases, each of which fails the run by raising:
              RWKV6 chunked scan and the Mamba2 SSD chunked scan (three
              launches each: chunk states, state passing, chunk outputs;
              ragged lengths, T = 1, 15 and 4096, three rows, 113 heads,
-             P != N, strong decay and the full-width shapes included, each
+             P != N, strong decay, RWKV6 decays below FLT_MIN (w = 1e-40
+             on every 7th token) and the full-width shapes included, each
              case also bitwise equal over two calls; no single PyTorch call
              computes either recurrence, so they have no library
              yardstick); time kernel and plain version at the main path's
@@ -40,6 +41,15 @@ Phases, each of which fails the run by raising:
              shared attention the flash prefill kernel once per
              application); random weights from a
              seeded torch.Generator;
+3b. traced  — the pipelined qwen3-0.6b phase (same trace, pools, weights)
+             and the rwkv6-7b phase again with engine tracing on: tokens
+             bitwise equal to the untraced run's, ``obs.reconcile`` of the
+             spans against EngineStats ok, no event dropped, and the
+             qwen3 trace's Chrome export accepted by ``obs.validate`` with a
+             host lane, a copy stream and an adopted plan; then the card's
+             busy share and its five kernels with the most time, from
+             torch.profiler over 8 decode steps of an untraced pipelined
+             qwen3-0.6b run;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
@@ -49,7 +59,8 @@ Phases, each of which fails the run by raising:
              rwkv6-7b and zamba2-7b.
 
 Output: the card line (nvidia-smi name, power limit), per-case kernel
-lines, the serve summaries, one ``{"kernels": [...]}`` line, the parity
+lines, the serve summaries, the traced phases' and the busy-share lines,
+one ``{"kernels": [...]}`` line, the parity
 counts and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero and
 prints no result.  It imports nothing of the JAX package.
@@ -57,6 +68,7 @@ prints no result.  It imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -390,10 +402,11 @@ def _close(torch, name, dt_name, case, pairs):
     return worst
 
 
-def rwkv6_inputs(torch, B, T, H, N, dtype, seed, strong=False):
+def rwkv6_inputs(torch, B, T, H, N, dtype, seed, strong=False, tiny_every=0):
     """r/k/v ~ N(0, 1); decay w = exp(-exp(z)) with z ~ N(0, 1), or with
     log w around -5 per step (``strong``), which drives the pair decays into
-    their +-60 clip; u ~ N(0, 1); state 0.1 N(0, 1)."""
+    their +-60 clip, and w = 1e-40, below FLT_MIN, on every ``tiny_every``-th
+    token; u ~ N(0, 1); state 0.1 N(0, 1)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r, k, v = (torch.randn(B, T, H, N, generator=g, device="cuda").to(dtype)
                for _ in range(3))
@@ -401,6 +414,8 @@ def rwkv6_inputs(torch, B, T, H, N, dtype, seed, strong=False):
     if strong:
         z = math.log(5.0) + 0.1 * z
     w = torch.exp(-torch.exp(z))
+    if tiny_every:
+        w[:, ::tiny_every] = 1e-40
     u = torch.randn(H, N, generator=g, device="cuda")
     s0 = 0.1 * torch.randn(B, H, N, N, generator=g, device="cuda")
     return r, k, v, w, u, s0
@@ -532,6 +547,8 @@ def rwkv6_kernel_phase(torch):
     cases = [dict(B=1, T=32, H=2, N=16), dict(B=2, T=64, H=4, N=32),  # test_kernels.py:100
              dict(B=1, T=100, H=2, N=16),  # ragged T
              dict(B=2, T=40, H=3, N=64, strong=True),  # strong decay, ragged
+             dict(B=2, T=70, H=3, N=32, tiny_every=7),  # w = 1e-40 < FLT_MIN, ragged
+             dict(B=1, T=512, H=64, N=64, tiny_every=7),
              dict(B=1, T=1, H=4, N=64), dict(B=1, T=15, H=4, N=64),  # one token, one part-chunk
              dict(B=1, T=4096, H=4, N=64),  # 64 state chunks
              dict(B=3, T=100, H=113, N=64),  # three rows, many heads
@@ -603,11 +620,12 @@ def zero_counters() -> None:
     mamba2_ssd.stage_launches = 0
 
 
-def engine_config(device_pages, host_pages, *, pipeline=False):
+def engine_config(device_pages, host_pages, *, pipeline=False, tracing=False):
     from repro_torch.config import EngineConfig
 
     return EngineConfig(device_pool_pages=device_pages, host_pool_pages=host_pages,
-                        policy="neo", pipeline=pipeline, hw_profile="h100_sxm", seed=0)
+                        policy="neo", pipeline=pipeline, hw_profile="h100_sxm", seed=0,
+                        tracing=tracing)
 
 
 def make_trace(n, vocab, seed=0, *, rate=0.0, output_len=32):
@@ -670,18 +688,19 @@ def check_paged_launches(cfg, launched, calls, label):
                              f"not in (0, {launched['paged_decode']}]")
 
 
-def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512, pipeline=False):
-    """Serve ``n`` requests through the paged path (serial, or pipelined)
-    with ``run_trace``; returns (engine, trace, metrics, launches, calls,
-    prefill shapes)."""
+def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512, pipeline=False,
+                tracing=False):
+    """Serve ``n`` requests through the paged path (serial, or pipelined;
+    traced or not) with ``run_trace``; returns (engine, trace, metrics,
+    launches, calls, prefill shapes)."""
     from repro_torch.core.engine import NeoEngine
     from repro_torch.core.request import RequestState
     from repro_torch.launch.serve import run_trace
 
-    engine = NeoEngine(cfg, engine_config(device_pages, host_pages, pipeline=pipeline),
-                       device=device)
+    engine = NeoEngine(cfg, engine_config(device_pages, host_pages, pipeline=pipeline,
+                                          tracing=tracing), device=device)
     trace = make_trace(n, cfg.vocab_size)
-    label = "pipelined" if pipeline else "serial"
+    label = ("traced " if tracing else "") + ("pipelined" if pipeline else "serial")
     m, launched, calls, shapes = drive(
         engine, trace, lambda e, t: run_trace(e, t, vocab=cfg.vocab_size))
     engine.close()
@@ -779,6 +798,118 @@ def online_phase(cfg, device, card, *, n=8, rate=4.0):
     return summary
 
 
+def check_traced(label, tracer, stats, tokens, want_tokens):
+    """A traced run's tokens equal the untraced run's bitwise, no event was
+    dropped and ``obs.reconcile`` of its spans agrees with its EngineStats;
+    returns (tokens equal, tokens, the reconcile report)."""
+    from repro_torch.obs import reconcile
+
+    same = sum(a == b for rid, toks in tokens.items()
+               for a, b in zip(toks, want_tokens[rid]))
+    total = sum(len(t) for t in want_tokens.values())
+    if same != total or total == 0 or tokens.keys() != want_tokens.keys():
+        raise AssertionError(f"{label}: {same} of {total} traced tokens equal the untraced "
+                             "run's")
+    if tracer.dropped:
+        raise AssertionError(f"{label}: the tracer's ring dropped {tracer.dropped} events")
+    rep = reconcile(tracer, stats)
+    if not rep.ok:
+        raise AssertionError(f"{label}: reconcile failed {rep.failed()}: "
+                             + json.dumps(rep.summary()))
+    return same, total, rep
+
+
+def traced_phase(cfg, device, want_tokens, untraced_makespan, card):
+    """The pipelined phase's trace, pools and weights with engine tracing
+    on: its tokens must equal the untraced phase's, ``reconcile`` must pass,
+    and the exported Chrome trace must pass ``obs.validate`` with a host
+    lane, a copy stream and at least one adopted plan."""
+    from repro_torch.obs.validate import validate
+
+    engine, _, m, launched, calls, _ = serve_phase(cfg, device, pipeline=True, tracing=True)
+    tr = engine.tracer
+    tokens = {rid: list(r.out_tokens) for rid, r in engine.requests.items()}
+    same, total, rep = check_traced("traced pipelined phase", tr, engine.stats, tokens,
+                                    want_tokens)
+    path = os.path.join(ROOT, "build", "chip_smoke_trace_qwen3.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    doc = tr.export_chrome(path)
+    fails = validate(path, expect_host_lane=True, expect_copy=True, min_adopts=1)
+    if fails:
+        raise AssertionError(f"traced pipelined phase: obs.validate failed: {fails}")
+    summary = serve_summary(cfg, engine, m, launched, calls, card)
+    summary.update(traced=True, tokens_equal_to_untraced=same, tokens=total,
+                   events_recorded=tr.total, events_dropped=tr.dropped,
+                   chrome_events=len(doc["traceEvents"]), tracks=tr.tracks(),
+                   makespan_ratio_traced_untraced=m.makespan / untraced_makespan,
+                   reconcile_checks=len(rep.checks), reconcile_ok=rep.ok,
+                   reconcile={k: v for k, v in rep.checks.items()
+                              if not k.startswith("lane_busy")})
+    return summary
+
+
+def busy_share_phase(torch, cfg, device, card, *, steps=8):
+    """The card's busy share over ``steps`` decode steps after prefill of an
+    untraced pipelined qwen3-0.6b run (the serve phases' trace and pools):
+    the union of the kernels' device intervals (torch.profiler, CUDA
+    activity) over the window's wall time, the copies' union apart, and the
+    five kernels with the most total time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.engine import NeoEngine
+
+    engine = NeoEngine(cfg, engine_config(64, 512, pipeline=True), device=device)
+    for t in make_trace(8, cfg.vocab_size):
+        engine.submit(t.prompt, t.output_len)
+    while any(not r.out_tokens for r in engine.requests.values()):
+        engine.step()
+    torch.cuda.synchronize()
+    tokens0 = engine.stats.tokens_out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    s = engine.stats
+    engine.close()
+    kernels, copies, by_name = [], [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies.append(iv)
+        else:
+            kernels.append(iv)
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + (iv[1] - iv[0]) / 1e3)
+    if not kernels:
+        raise AssertionError("busy share: the profiler recorded no kernel on the card")
+
+    def union_s(ivs):
+        total, end = 0.0, -math.inf
+        for a, b in sorted(ivs):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e6
+
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return {"model": cfg.name, "dtype": cfg.activation_dtype, "pipeline": True,
+            "window_steps": steps, "window_wall_s": wall,
+            "window_tokens": s.tokens_out - tokens0,
+            "kernel_busy_s": union_s(kernels), "busy_share": union_s(kernels) / wall,
+            "idle_share": 1.0 - union_s(kernels) / wall,
+            "copy_busy_share": union_s(copies) / wall if copies else 0.0,
+            "kernels_recorded": len(kernels), "kernel_names": len(by_name),
+            "kernel_sum_ms": sum(t for _, t in by_name.values()),
+            "top5_kernels": [{"name": k[:120], "launches": n, "total_ms": t}
+                             for k, (n, t) in top],
+            "card": card}
+
+
 def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, chunk=8,
                  pipeline=False):
     """fp32 engine on the same prompts; every emitted token must be the
@@ -843,25 +974,27 @@ SSM_KERNEL = {"ssm": "rwkv6_scan", "hybrid": "mamba2_ssd"}
 SSM_SLOTS, SSM_CAPACITY = 8, 1024  # 8 slots x 1024 tokens: zamba2's KV ~1.6 GB
 
 
-def ssm_engine_config():
+def ssm_engine_config(tracing=False):
     from repro_torch.config import EngineConfig
 
     return EngineConfig(max_requests=SSM_SLOTS, max_batch_tokens=SSM_CAPACITY,
-                        policy="neo", pipeline=False, hw_profile="h100_sxm", seed=0)
+                        policy="neo", pipeline=False, hw_profile="h100_sxm", seed=0,
+                        tracing=tracing)
 
 
-def ssm_serve_phase(torch, cfg, device, *, n=8):
+def ssm_serve_phase(torch, cfg, device, *, n=8, tracing=False):
     """Serve ``n`` requests of ``cfg`` (ssm or hybrid) through the
     contiguous engine with every launch counter zeroed just before and read
     just after; the path's scan kernel must have launched once per layer per
-    prefill and no other kernel at all.  Returns (summary, trace)."""
+    prefill and no other kernel at all.  Returns (summary, trace, tokens by
+    request, the engine's tracer and stats)."""
     from repro_torch.core.engine import NeoEngine
     from repro_torch.core.request import RequestState
     from repro_torch.launch.serve import run_trace
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = NeoEngine(cfg, ssm_engine_config(), device=device)
+    engine = NeoEngine(cfg, ssm_engine_config(tracing), device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     if engine.paged:
@@ -908,11 +1041,14 @@ def ssm_serve_phase(torch, cfg, device, *, n=8):
         "lane_busy_s": dict(s.lane_busy_time), "plan_busy_s": s.plan_busy_time,
         "modes": s.mode_counts, "policy": engine.scheduler.policy,
         "kernel_launches": launched, "init_s": init_s,
-        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9, "traced": tracing,
     }
+    tokens = {rid: list(r.out_tokens) for rid, r in engine.requests.items()}
+    tracer, stats = engine.tracer, engine.stats
     del engine
+    gc.collect()  # the counting wrapper keeps the executor and its model in a cycle
     torch.cuda.empty_cache()
-    return summary, trace
+    return summary, trace, tokens, tracer, stats
 
 
 def ssm_parity_phase(torch, cfg, device, trace):
@@ -1048,15 +1184,49 @@ def main() -> int:
     log(f"[serve] pipelined vs serial bf16 tokens: {pipe_summary['tokens_equal_to_serial']}"
         f" of {pipe_summary['tokens']} equal (asserted)")
     pipe_launched = pipe_summary["kernel_launches"]
+    pipe_tokens = {rid: list(r.out_tokens) for rid, r in pipe.requests.items()}
     del serial, pipe
+    torch.cuda.empty_cache()
+    traced = traced_phase(cfg, "cuda", pipe_tokens, pipe_summary["makespan_s"], card)
+    log(json.dumps({"serve": traced}))
+    log(f"[traced] {cfg.name} pipelined: {traced['tokens_equal_to_untraced']} of "
+        f"{traced['tokens']} tokens equal to the untraced phase's (asserted); "
+        f"events recorded {traced['events_recorded']}, dropped 0; tracks "
+        f"{','.join(traced['tracks'])}; makespan traced/untraced "
+        f"{traced['makespan_ratio_traced_untraced']:.4f}; reconcile ok over "
+        f"{traced['reconcile_checks']} checks; obs.validate ok (host lane, copy, adopts)")
     torch.cuda.empty_cache()
     log(json.dumps({"serve": online_phase(cfg, "cuda", card)}))
     torch.cuda.empty_cache()
     ssm = {}
     for arch in ("rwkv6-7b", "zamba2-7b"):
-        summary, ssm_trace = ssm_serve_phase(torch, get_config(arch), "cuda")
-        ssm[arch] = (summary, ssm_trace)
+        summary, ssm_trace, tokens, _, _ = ssm_serve_phase(torch, get_config(arch), "cuda")
+        ssm[arch] = (summary, ssm_trace, tokens)
         log(json.dumps({"serve": {**summary, "card": card}}))
+    rwkv = get_config("rwkv6-7b")
+    t_summary, _, t_tokens, t_tracer, t_stats = ssm_serve_phase(torch, rwkv, "cuda",
+                                                                tracing=True)
+    same, total, rep = check_traced("traced rwkv6-7b phase", t_tracer, t_stats, t_tokens,
+                                    ssm["rwkv6-7b"][2])
+    t_summary.update(tokens_equal_to_untraced=same, tokens=total,
+                     events_recorded=t_tracer.total, events_dropped=t_tracer.dropped,
+                     tracks=t_tracer.tracks(), reconcile_checks=len(rep.checks),
+                     reconcile_ok=rep.ok, makespan_ratio_traced_untraced=(
+                         t_summary["makespan_s"] / ssm["rwkv6-7b"][0]["makespan_s"]))
+    log(json.dumps({"serve": {**t_summary, "card": card}}))
+    log(f"[traced] {rwkv.name} contiguous: {same} of {total} tokens equal to the untraced "
+        f"phase's (asserted); events recorded {t_tracer.total}; makespan traced/untraced "
+        f"{t_summary['makespan_ratio_traced_untraced']:.4f}; reconcile ok over "
+        f"{len(rep.checks)} checks")
+    del t_tracer, t_stats
+    busy = busy_share_phase(torch, cfg, "cuda", card)
+    log(f"[busy] {cfg.name} pipelined, {busy['window_steps']} decode steps after prefill "
+        f"({busy['window_wall_s']:.3f} s): kernels busy {busy['busy_share']:.4f} of the "
+        f"window (idle {busy['idle_share']:.4f}), copies {busy['copy_busy_share']:.4f}; top 5: "
+        + "; ".join(f"{k['name'][:60]} {k['total_ms']:.3f} ms x{k['launches']}"
+                    for k in busy["top5_kernels"]))
+    log(json.dumps({"busy_share": busy}))
+    torch.cuda.empty_cache()
 
     from repro_torch.kernels.paged_decode.ops import PAGES_PER_SPLIT
 
@@ -1117,7 +1287,7 @@ def main() -> int:
         log(json.dumps({"parity": parity_phase(torch, cfg, "cuda", trace,
                                                pipeline=pipeline)}))
         torch.cuda.empty_cache()
-    for arch, (_, ssm_trace) in ssm.items():
+    for arch, (_, ssm_trace, _) in ssm.items():
         log(json.dumps({"parity": ssm_parity_phase(torch, get_config(arch), "cuda",
                                                    ssm_trace)}))
     log(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -35,9 +35,17 @@ new requests one at a time into free slots, then runs one decode over all
 slots in which only the running rows' slots advance.  ``pipeline`` does not
 apply there, as in the reference.
 
-Tensor parallelism (ROADMAP P13), the prefix cache (P9), speculative
-decoding (P10) and tracing (P8) are not ported: building the engine with any
-of them switched on raises ``NotImplementedError``.
+Tracing (``EngineConfig.tracing``, :mod:`repro_torch.obs`) is off by
+default.  When on, every emit site sits behind ``if tracer is not None``, so
+the traced and untraced paths run the same computation, and every span
+carries the very floats the stats consumed, so ``obs.reconcile`` recomputes
+the overlap accounting from the spans.  The contiguous path emits
+``device``/``prefill`` and ``device``/``serial`` spans for the lane windows
+it records (the reference's contiguous path records none).
+
+Tensor parallelism (ROADMAP P13), the prefix cache (P9) and speculative
+decoding (P10) are not ported: building the engine with any of them switched
+on raises ``NotImplementedError``.
 
 Fault tolerance: every accepted request is journaled (prompt + sampling
 params + emitted tokens); :meth:`export_journal` / :meth:`replay_journal`
@@ -66,6 +74,7 @@ from repro_torch.core.scheduler import BatchPlan, NeoScheduler, PoolView, SchedQ
 from repro_torch.core.transfer import WAIT_TIMEOUT_S, TransferEngine
 from repro_torch.device import new_stream, on_stream, resolve_device
 from repro_torch.models.api import get_model
+from repro_torch.obs.tracer import SpanTracer
 
 PAGED_FAMILIES = ("dense", "moe", "vlm")
 
@@ -155,8 +164,6 @@ def _unsupported(engine_cfg: EngineConfig) -> Optional[str]:
         return "the prefix cache is not ported yet (ROADMAP P9)"
     if engine_cfg.spec_decode:
         return "speculative decoding is not ported yet (ROADMAP P10)"
-    if engine_cfg.tracing:
-        return "engine tracing is not ported yet (ROADMAP P8)"
     return None
 
 
@@ -237,6 +244,11 @@ class NeoEngine:
         self._next_rid = 0
         self.requests: Dict[int, Request] = {}
         self.stats = EngineStats()
+        # structured tracing (repro_torch.obs): off by default; every emit
+        # site guards on ``tracer is not None``
+        self.tracer: Optional[SpanTracer] = None
+        if engine_cfg.tracing:
+            self.attach_tracer(SpanTracer(engine_cfg.trace_buffer))
         self._journal: List[Dict[str, Any]] = []
         self.clock = 0.0  # virtual clock (arrival bookkeeping in offline runs)
         # plan-ahead: one planner thread (started lazily) builds the NEXT
@@ -245,6 +257,16 @@ class NeoEngine:
         # as (predicted signature, shadow queues, shadow requests, future)
         self._planner: Optional[ThreadPoolExecutor] = None
         self._spec: Optional[Tuple[Any, SchedQueues, Dict[int, Request], Any]] = None
+
+    def attach_tracer(self, tracer: Optional[SpanTracer]) -> None:
+        """(Re)wire ``tracer`` through every instrumented component: the
+        scheduler, and on the paged path the executor and the transfer
+        engine (``None`` switches tracing off)."""
+        self.tracer = tracer
+        self.scheduler.tracer = tracer
+        if self.paged:
+            self.executor.tracer = tracer
+            self.transfer.tracer = tracer
 
     # ------------------------------------------------------------------
     # submission
@@ -278,6 +300,10 @@ class NeoEngine:
                 "out_tokens": req.out_tokens,  # aliased: auto-updates
             }
         )
+        if self.tracer is not None:
+            self.tracer.async_begin(rid, "req", args={
+                "prompt_len": len(req.prompt),
+                "max_new_tokens": req.max_new_tokens})
         return rid
 
     def offer(
@@ -292,6 +318,8 @@ class NeoEngine:
         the rejection) when the waitqueue is at ``max_waiting`` depth."""
         if not self.scheduler.has_capacity():
             self.stats.rejected_requests += 1
+            if self.tracer is not None:
+                self.tracer.instant("engine", "reject", {"reason": "max_waiting"})
             return None
         return self.submit(prompt, max_new_tokens, arrival_time=arrival_time,
                            eos_token=eos_token)
@@ -317,6 +345,9 @@ class NeoEngine:
                 q.remove(req)
         req.state = RequestState.ABORTED
         req.finish_time = self.clock
+        if self.tracer is not None:
+            self.tracer.async_end(rid, "req", args={
+                "outcome": "cancelled", "tokens": len(req.out_tokens)})
         return True
 
     # ------------------------------------------------------------------
@@ -356,10 +387,15 @@ class NeoEngine:
             req.first_token_time = now
         emitted.append((req.rid, tok))
         self.stats.tokens_out += 1
+        if self.tracer is not None:
+            self.tracer.async_instant(req.rid, "tok", args={"token": tok})
 
     def _finish(self, req: Request, now: float) -> None:
         req.state = RequestState.FINISHED
         req.finish_time = now
+        if self.tracer is not None:
+            self.tracer.async_end(req.rid, "req", args={
+                "outcome": "finished", "tokens": len(req.out_tokens)})
         if req.pages:
             if self.paged:
                 self.pool.pool(req.location).free(req.pages)
@@ -489,14 +525,20 @@ class NeoEngine:
         shadow = self._build_shadow(plan)
         if shadow is None:
             self.stats.planahead_skipped += 1
+            if self.tracer is not None:
+                self.tracer.instant("engine", "plan_skip")
             return
         st, shadows, pools_pred, sig_pred = shadow
         sched = self.scheduler
+        tr = self.tracer
 
         def _plan_spec():
             t0 = time.perf_counter()
             p = sched.plan(pools_pred, state=st)
-            return p, time.perf_counter() - t0
+            dur = time.perf_counter() - t0
+            if tr is not None:
+                tr.emit("planner", "spec_plan", t0, t0 + dur, {"dur": dur})
+            return p, dur
 
         if self._planner is None:
             self._planner = ThreadPoolExecutor(max_workers=1,
@@ -511,6 +553,7 @@ class NeoEngine:
         if spec is None:
             return None, False
         sig_pred, st, shadows, fut = spec
+        tr = self.tracer
         t0 = time.perf_counter()
         err = False
         try:
@@ -518,7 +561,10 @@ class NeoEngine:
         except Exception:
             err = True
         # a harvest wait (planning outlasted the lanes) is critical-path time
-        self.stats.plan_busy_time += time.perf_counter() - t0
+        wait = time.perf_counter() - t0
+        self.stats.plan_busy_time += wait
+        if tr is not None:
+            tr.emit("engine", "plan_harvest", t0, t0 + wait, {"dur": wait})
         if err or self._signature() != sig_pred:
             self.stats.planahead_replans += 1
             return None, True
@@ -560,6 +606,8 @@ class NeoEngine:
         self.stats.planahead_hidden_time += dur
         self.stats.pipeline_overlap_time += dur
         self.stats.pipeline_ideal_time += dur
+        if tr is not None:
+            tr.instant("engine", "plan_adopt", {"dur": dur})
         return plan, False
 
     # ------------------------------------------------------------------
@@ -586,6 +634,9 @@ class NeoEngine:
             plan = self.scheduler.plan(self._pool_view())
             dt = time.perf_counter() - p0
             self.stats.plan_busy_time += dt
+            if self.tracer is not None:
+                self.tracer.emit("engine", "plan_fresh", p0, p0 + dt,
+                                 {"dur": dt, "hideable": replanned})
             if replanned:
                 # a falsified speculation: this planning time WAS hideable
                 self.stats.pipeline_ideal_time += dt
@@ -622,6 +673,14 @@ class NeoEngine:
                 swap_busy=ts.busy_time - swap_busy0,
                 pipelined=self.engine_cfg.pipeline and plan.mode != "serial",
             )
+        if self.tracer is not None:
+            self.tracer.emit("engine", "step", t0, time.perf_counter(),
+                             {"iter": self.stats.iterations})
+            self.tracer.counter("queues", self.scheduler.queue_depths())
+            if self.paged:
+                self.tracer.counter("pool_free", {
+                    "device": self.pool.device.free_pages,
+                    "host": self.pool.host.free_pages})
         return emitted
 
     def _step_paged(self, plan: BatchPlan, now: float,
@@ -629,6 +688,12 @@ class NeoEngine:
         # "serial"-mode plans (strawman #1) execute without overlap by
         # definition; everything else pipelines when enabled
         pipelined = self.engine_cfg.pipeline and plan.mode != "serial"
+        tr = self.tracer
+        it = self.stats.iterations
+        if tr is not None:
+            # copy handles launched this step stamp their spans with the
+            # iteration id, pairing them with the dispatch window below
+            self.transfer.trace_iter = it
 
         # ==== LAUNCH =========================================================
         # recompute preemption (both pools full): drop KV, requeue
@@ -718,6 +783,12 @@ class NeoEngine:
             dev_windows.append((t0, time.perf_counter()))
             self.stats.device_busy_time += dev_windows[-1][1] - t0
             self.stats.lane_add("prefill", dev_windows[-1][1] - t0)
+            if tr is not None:
+                tr.emit("device", "prefill", t0, dev_windows[-1][1],
+                        {"iter": it, "rows": len(plan.prefill)})
+                for r in plan.prefill:
+                    tr.async_begin(r.rid, "prefill", t=t0)
+                    tr.async_end(r.rid, "prefill", t=dev_windows[-1][1])
             self.stats.prefill_tokens += sum(r.suffix_len for r in plan.prefill)
             for i, r in enumerate(plan.prefill):
                 if not r.out_tokens:
@@ -735,6 +806,9 @@ class NeoEngine:
                     dev_windows.append((t0, time.perf_counter()))
                     self.stats.device_busy_time += dev_windows[-1][1] - t0
                     self.stats.lane_add("batch0", dev_windows[-1][1] - t0)
+                    if tr is not None:
+                        tr.emit("device", "batch0", t0, dev_windows[-1][1],
+                                {"iter": it, "rows": len(rows0)})
                 lane_windows = [(0.0, 0.0)] * n_lanes
                 lane_logits: List[Optional[np.ndarray]] = [None] * n_lanes
                 inline_hb = 0.0
@@ -759,6 +833,12 @@ class NeoEngine:
                 # but the longest lane
                 for li, w in enumerate(lane_windows):
                     self.stats.lane_add(f"host{li}", w[1] - w[0])
+                    if tr is not None:
+                        a: Dict[str, Any] = {"iter": it, "rows": len(lane_rows[li])}
+                        if li == inline_idx:
+                            a["inline"] = True
+                            a["host_busy"] = inline_hb
+                        tr.emit(f"host{li}", "lane", w[0], w[1], a)
                 interval_lanes: List[List[Tuple[float, float]]] = []
                 if dev_windows:
                     interval_lanes.append(list(dev_windows))
@@ -792,6 +872,9 @@ class NeoEngine:
                 dev_windows.append((t0, time.perf_counter()))
                 self.stats.device_busy_time += dev_windows[-1][1] - t0
                 self.stats.lane_add("serial", dev_windows[-1][1] - t0)
+                if tr is not None:
+                    tr.emit("device", "serial", t0, dev_windows[-1][1],
+                            {"iter": it, "rows": len(rows)})
                 row_logits = list(logits)
             self.stats.offloaded_decodes += sum(host_flags)
             self.stats.device_decodes += len(rows) - sum(host_flags)
@@ -802,18 +885,27 @@ class NeoEngine:
         # gpu_only swap-outs whose victims do not decode this iteration), so
         # every step ends with the pools consistent
         if pipelined:
+            d0 = time.perf_counter() if tr is not None else 0.0
             self.transfer.drain()
+            if tr is not None:
+                tr.emit("engine", "drain", d0, time.perf_counter(), {"iter": it})
             # bytes hidden under compute: copy windows overlapped by this
             # step's dispatch window (page tables + prefill + every lane)
             dev_end = dev_windows[-1][1] if dev_windows else None
             lanes_end = max((w[1] for w in lane_windows), default=None)
             win_end = max(filter(None, (dev_end, lanes_end)), default=None)
             if win_end is not None:
+                if tr is not None:
+                    tr.emit("engine", "dispatch", dispatch_t0, win_end, {"iter": it})
                 for h in out_handles + in_handles:
                     self.stats.swap_hidden_bytes += h.hidden_bytes(dispatch_t0, win_end)
 
     def _step_contiguous(self, plan: BatchPlan, now: float,
                          emitted: List[Tuple[int, int]]) -> None:
+        # the device spans carry the windows lane_add records, so
+        # reconcile() holds these lanes too
+        tr = self.tracer
+        it = self.stats.iterations
         self.scheduler.commit(plan)
         t0 = time.perf_counter()
         for r in plan.prefill:
@@ -823,9 +915,12 @@ class NeoEngine:
             self.stats.prefill_tokens += r.prompt_len
             self._emit(r, logits, now, emitted)
         if plan.prefill:
-            dt = time.perf_counter() - t0
-            self.stats.device_busy_time += dt
-            self.stats.lane_add("prefill", dt)
+            t1 = time.perf_counter()
+            self.stats.device_busy_time += t1 - t0
+            self.stats.lane_add("prefill", t1 - t0)
+            if tr is not None:
+                tr.emit("device", "prefill", t0, t1,
+                        {"iter": it, "rows": len(plan.prefill)})
         rows = [r for r in plan.decode_rows if r.state == RequestState.RUNNING
                 and r not in plan.prefill]
         if rows:
@@ -836,9 +931,11 @@ class NeoEngine:
                 tokens_by_slot[r.pages[0]] = r.all_tokens[-1]
                 active[r.pages[0]] = True
             logits = self.executor.decode(tokens_by_slot, active)
-            dt = time.perf_counter() - t0
-            self.stats.device_busy_time += dt
-            self.stats.lane_add("serial", dt)
+            t1 = time.perf_counter()
+            self.stats.device_busy_time += t1 - t0
+            self.stats.lane_add("serial", t1 - t0)
+            if tr is not None:
+                tr.emit("device", "serial", t0, t1, {"iter": it, "rows": len(rows)})
             self.stats.device_decodes += len(rows)
             for r in rows:
                 self._emit(r, logits[r.pages[0]], now, emitted)

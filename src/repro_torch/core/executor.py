@@ -96,6 +96,9 @@ class PagedExecutor:
                                              thread_name_prefix="neo-hostlane")
         self._lane_streams: Dict[int, Optional[torch.cuda.Stream]] = {}
         self._streams_lock = threading.Lock()
+        # tracing (repro_torch.obs): set by the engine; host attention and
+        # the lane threads emit spans
+        self.tracer = None
 
     def _lane_stream(self, lane: int):
         with self._streams_lock:
@@ -165,15 +168,18 @@ class PagedExecutor:
                                                  tables_t, lens_t)
             if len(host_idx):
                 o[host_idx_t] = self._host_attention(
-                    li, q[host_idx_t], k[host_idx_t], v[host_idx_t], h_meta, o.dtype)
+                    li, q[host_idx_t], k[host_idx_t], v[host_idx_t], h_meta, o.dtype,
+                    "hostattn-b0")
             x = self._layer_post(blk, x, o)
         return model.final_logits(x)[:n].cpu().numpy()
 
-    def _host_attention(self, li: int, q, k, v, meta, dtype) -> torch.Tensor:
+    def _host_attention(self, li: int, q, k, v, meta, dtype, track: str) -> torch.Tensor:
         """TrQKV (one copy) -> CPU attention over the host pool -> TrO for
         the host rows ``q``/``k``/``v`` [R, ...]; ``meta`` = (tables, lens,
         page ids, offsets) in the host pool.  Returns [R, H, hd] in
-        ``dtype`` on the device."""
+        ``dtype`` on the device.  Traced as span ``L{li}`` on ``track``."""
+        tr = self.tracer
+        t0 = time.perf_counter() if tr is not None else 0.0
         R = q.shape[0]
         tables, lens, pids, offs = meta
         qkv = torch.cat([t.reshape(R, -1) for t in (q, k, v)], dim=1)
@@ -184,7 +190,10 @@ class PagedExecutor:
         vh = qkv[:, nq + nk:].reshape(R, *v.shape[1:])
         oh = self.host.run_layer(li, qh, kh, vh, host_rows=np.arange(R), tables=tables,
                                  lens=lens, page_ids=pids, offsets=offs)
-        return torch.from_numpy(oh).to(self.device).to(dtype)
+        o = torch.from_numpy(oh).to(self.device).to(dtype)
+        if tr is not None:
+            tr.emit(track, f"L{li}", t0, time.perf_counter(), {"rows": R})
+        return o
 
     # batch-0 is the decode pass over device + cpu0 rows: exactly the serial
     # entry restricted to its sub-batch
@@ -227,7 +236,8 @@ class PagedExecutor:
             for li, blk in enumerate(model.layers):
                 q, k, v = self._layer_pre(blk, x, pos_t)
                 o = torch.zeros_like(q)
-                o[:n] = self._host_attention(li, q[:n], k[:n], v[:n], meta, q.dtype)
+                o[:n] = self._host_attention(li, q[:n], k[:n], v[:n], meta, q.dtype,
+                                             f"hostattn-lane{lane}")
                 x = self._layer_post(blk, x, o)
             return model.final_logits(x)[:n].cpu().numpy()
 
@@ -240,11 +250,22 @@ class PagedExecutor:
         lane-scoped swap-out join there)."""
 
         def run_lane() -> Tuple[np.ndarray, Tuple[float, float]]:
+            tr = self.tracer
+            track = f"host{lane - 1}"  # the engine's lane index li = lane - 1
             t0 = time.perf_counter()
             if pre is not None:
+                j0 = time.perf_counter() if tr is not None else 0.0
                 pre()
+                if tr is not None:
+                    tr.emit(track, "join_out", j0, time.perf_counter())
+            c0 = time.perf_counter() if tr is not None else 0.0
             out = self.decode_host_lane(rows, lane=lane)
-            return out, (t0, time.perf_counter())
+            # one read of the clock ends both the nested compute span and the
+            # lane window the engine spans and accounts
+            end = time.perf_counter()
+            if tr is not None:
+                tr.emit(track, "compute", c0, end, {"rows": len(rows)})
+            return out, (t0, end)
 
         return self._lane_pool.submit(run_lane)
 

@@ -89,6 +89,9 @@ class TransferHandle:
         self.kind = kind  # "out" | "in"
         self.req = req
         self.nbytes = nbytes
+        # engine iteration that launched this swap (tracing: pairs the
+        # worker's copy span with that iteration's dispatch window)
+        self.trace_iter = 0
         self.error: Optional[BaseException] = None
         self._event = threading.Event()
         self._apply: Optional[Callable[[], None]] = None  # staged device write
@@ -136,6 +139,10 @@ class TransferEngine:
         self.pool = pool
         self.stats = TransferStats()
         self._lock = threading.Lock()
+        # tracing (repro_torch.obs): set by the engine; each worker emits one
+        # copy span per job on its stream's track
+        self.tracer = None
+        self.trace_iter = 0
         self.compute_stream = compute_stream
         dev = pool.device.k.device
         streams = ("out", "in")  # one copy stream and worker per PCIe direction
@@ -189,6 +196,12 @@ class TransferEngine:
                     self.stats.busy_by_stream.get(stream, 0.0) + (t1 - t0))
             if not failed:
                 h.copy_start, h.copy_end = t0, t1
+            tr = self.tracer
+            if tr is not None:
+                # emitted BEFORE the event fires, so the span exists by the
+                # time any join on this handle returns
+                tr.emit(f"copy-{stream}", h.kind, t0, t1,
+                        {"nbytes": h.nbytes, "iter": h.trace_iter})
             h._event.set()
 
     # ------------------------------------------------------------------
@@ -222,6 +235,7 @@ class TransferEngine:
         req.location = "cpu"
         nbytes = k_h.numel() * k_h.element_size() + v_h.numel() * v_h.element_size()
         handle = TransferHandle("out", req, nbytes)
+        handle.trace_iter = self.trace_iter
         handle.cuda_event = ev_v  # recorded after both copies on one stream
 
         def copy() -> None:  # copy-stream worker
@@ -254,6 +268,7 @@ class TransferEngine:
         page_bytes = host.k[:, :1].numel() * host.k.element_size()
         nbytes = 2 * page_bytes * len(old_pages)
         handle = TransferHandle("in", req, nbytes)
+        handle.trace_iter = self.trace_iter
         staged: Dict[str, object] = {}
         device = dev.k.device
 

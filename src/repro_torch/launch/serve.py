@@ -24,9 +24,20 @@ Flags are the JAX launcher's; the engine is pipelined unless
 ``rwkv6-7b`` (ssm) and ``zamba2-7b`` (hybrid) through the contiguous engine,
 for which the pool flags (``--device-pages``, ``--host-pages``) and the
 pipeline flags do not apply and are ignored, as the JAX launcher ignores
-them, and ``--max-batch-tokens`` is each slot's capacity.  The prefix
-cache, tensor parallelism, speculative decoding (``--spec-k`` included) and
-tracing raise ``NotImplementedError`` naming their ROADMAP item.
+them, and ``--max-batch-tokens`` is each slot's capacity.  ``--trace-out``
+(or ``--require-reconcile``) switches engine tracing on: the serve writes a
+Chrome trace-event JSON (Perfetto-loadable) and the counter time-series as
+``<stem>.counters.jsonl`` beside it (or at ``--counters-out``), and adds the
+``reconcile()`` audit of the spans against ``EngineStats`` to its JSON
+summary; with ``--require-reconcile`` it exits 1 when the audit fails:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --trace-out trace.json --require-reconcile
+  PYTHONPATH=src python -m repro_torch.obs.validate trace.json \
+      --expect-host-lane --expect-copy --min-adopts 1
+
+The prefix cache, tensor parallelism and speculative decoding (``--spec-k``
+included) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from repro_torch.config import EngineConfig
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core.engine import NeoEngine
 from repro_torch.core.request import RequestState
+from repro_torch.obs.reconcile import reconcile
 from repro_torch.serving.metrics import RequestRecord, ServeMetrics
 from repro_torch.serving.traces import get_trace, save_trace
 
@@ -278,8 +290,6 @@ def _unported_flags(args) -> str:
     if (args.spec_decode or args.draft_model or args.require_accepts
             or args.spec_k != EngineConfig.spec_k):
         return "speculative decoding is not ported yet (ROADMAP P10)"
-    if args.trace_out or args.counters_out or args.require_reconcile:
-        return "engine tracing is not ported yet (ROADMAP P8)"
     return ""
 
 
@@ -321,9 +331,16 @@ def main(argv=None) -> int:
                          "plan-ahead); exit 1 when a gate fails")
     ap.add_argument("--save-trace", default="",
                     help="write the (clamped) trace as JSONL for replay")
-    ap.add_argument("--trace-out", default="")
-    ap.add_argument("--counters-out", default="")
-    ap.add_argument("--require-reconcile", action="store_true")
+    ap.add_argument("--trace-out", default="",
+                    help="switch engine tracing on and write the Chrome trace-event "
+                         "JSON here; the counters go to <stem>.counters.jsonl unless "
+                         "--counters-out is given")
+    ap.add_argument("--counters-out", default="",
+                    help="JSONL sink for the tracer's counter time-series "
+                         "(queue depths, free pages); requires --trace-out")
+    ap.add_argument("--require-reconcile", action="store_true",
+                    help="exit 1 unless reconcile(), the audit of the spans against "
+                         "EngineStats, passes (switches tracing on)")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--spec-decode", action="store_true")
     ap.add_argument("--spec-k", type=int, default=EngineConfig.spec_k)
@@ -352,6 +369,7 @@ def main(argv=None) -> int:
               "the SLO with identical outputs")
         return 0
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    tracing = bool(args.trace_out) or args.require_reconcile
     ecfg = EngineConfig(
         device_pool_pages=args.device_pages,
         host_pool_pages=args.host_pages,
@@ -362,6 +380,7 @@ def main(argv=None) -> int:
         max_host_lanes=args.max_host_lanes,
         planahead=not args.no_planahead,
         max_waiting=args.max_waiting,
+        tracing=tracing,
         seed=args.seed,
     )
     open_loop = args.arrivals != "closed"
@@ -381,8 +400,29 @@ def main(argv=None) -> int:
     runner = run_online if open_loop else run_trace
     m = runner(engine, trace, vocab=cfg.vocab_size, seed=args.seed)
     engine.close()
-    print(json.dumps(m.summary(), indent=1))
+    summary = m.summary()
+    report = None
+    if engine.tracer is not None:
+        if args.trace_out:
+            doc = engine.tracer.export_chrome(args.trace_out)
+            print(f"[serve] wrote {len(doc['traceEvents'])} trace events to "
+                  f"{args.trace_out} (recorded={engine.tracer.total} "
+                  f"dropped={engine.tracer.dropped})")
+            counters_out = args.counters_out
+            if not counters_out:
+                stem = args.trace_out
+                if stem.endswith(".json"):
+                    stem = stem[: -len(".json")]
+                counters_out = stem + ".counters.jsonl"
+            n_c = engine.tracer.export_counters_jsonl(counters_out)
+            print(f"[serve] wrote {n_c} counter samples to {counters_out}")
+        report = reconcile(engine.tracer, engine.stats)
+        summary["reconcile"] = report.summary()
+    print(json.dumps(summary, indent=1))
     print("scheduler modes:", m.mode_counts)
+    if args.require_reconcile and not report.ok:
+        print(f"[serve] FAIL: the span timeline disagrees with EngineStats: {report.failed()}")
+        return 1
     return 0
 
 

@@ -31,7 +31,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for n in names:
     importlib.import_module(n)
 for n in ("repro_torch.core.transfer", "repro_torch.kernels.flash_prefill.ops",
-          "repro_torch.kernels.flash_prefill.ref"):
+          "repro_torch.kernels.flash_prefill.ref", "repro_torch.obs",
+          "repro_torch.obs.tracer", "repro_torch.obs.reconcile", "repro_torch.obs.validate"):
     assert n in names, n
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -89,11 +90,23 @@ def test_entry_points_refuse_cpu_fallback(no_cuda):
     (dict(pipeline=False, tp=2), "P13"),
     (dict(pipeline=False, prefix_cache=True), "P9"),
     (dict(pipeline=False, spec_decode=True), "P10"),
-    (dict(pipeline=False, tracing=True), "P8"),
 ])
 def test_unported_engine_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=item):
         NeoEngine(CFG, EngineConfig(**option), device="cpu")
+
+
+def test_tracing_engine_builds_on_cpu():
+    """``tracing=True`` (refused before the tracer was ported) wires one
+    tracer through the scheduler, the executor and the transfer engine."""
+    eng = NeoEngine(CFG, EngineConfig(tracing=True), device="cpu")
+    try:
+        assert eng.tracer is not None and eng.tracer.capacity == EngineConfig.trace_buffer
+        assert eng.scheduler.tracer is eng.executor.tracer is eng.transfer.tracer is eng.tracer
+        eng.attach_tracer(None)
+        assert eng.scheduler.tracer is eng.executor.tracer is eng.transfer.tracer is None
+    finally:
+        eng.close()
 
 
 def test_pipelined_engine_runs_on_cpu_when_asked():

@@ -269,57 +269,141 @@ def test_card_recomputed_kv_vs_decoded_kv_record(engine):
     print(json.dumps({"recompute_vs_decoded": record}))
 
 
+def _sustained_loops(monkeypatch, host_bf16: bool) -> dict:
+    """One ``--sustained`` A/B run (closed-loop lockstep, then open loop +
+    plan-ahead), each engine traced, with each request's moves (prefill into
+    a pool, swap-out, swap-in) logged at the iteration that launched them.
+    With ``host_bf16`` the host pool holds the device pool's bf16 values
+    exactly: numpy has no bfloat16, so the pool stores them in float32
+    (every value written is a bf16 activation or a bf16 device page).
+    Returns the record of the run."""
+    from repro_torch.core.kv_cache import PagePool
+    from repro_torch.launch import serve
+    from repro_torch.obs import SpanTracer
+
+    engines = []
+    init = NeoEngine.__init__
+    init_pool = PagePool.__init__
+
+    def counted_init(self, *a, **k):
+        init(self, *a, **k)
+        self.attach_tracer(SpanTracer(1 << 20))
+        moves = collections.defaultdict(list)  # rid -> [(iter, move)]
+        engines.append((self, moves))
+        prefill = self.executor.prefill
+
+        def log_prefill(reqs, to_host):
+            for r, host in zip(reqs, to_host):
+                moves[r.rid].append((self.stats.iterations, "cpu" if host else "gpu"))
+            return prefill(reqs, to_host)
+
+        self.executor.prefill = log_prefill
+        for name, where in (("swap_out", "cpu"), ("swap_in", "gpu")):
+            fn = getattr(self.transfer, name)
+
+            def log_swap(req, _fn=fn, _name=name, _where=where):
+                assert self.transfer.trace_iter == self.stats.iterations
+                moves[req.rid].append((self.stats.iterations, f"{_name}->{_where}"))
+                return _fn(req)
+
+            setattr(self.transfer, name, log_swap)
+
+    def f32_host_pool(self, cfg, num_pages, *, backend, device, num_layers=None):
+        init_pool(self, cfg, num_pages, backend=backend, device=device, num_layers=num_layers)
+        if backend == "host":
+            self.dtype = torch.float32
+            self.k = torch.zeros(self.k.shape, dtype=torch.float32, pin_memory=self.pinned)
+            self.v = torch.zeros(self.v.shape, dtype=torch.float32, pin_memory=self.pinned)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(NeoEngine, "__init__", counted_init)
+        if host_bf16:
+            mp.setattr(PagePool, "__init__", f32_host_pool)
+        result = serve.run_sustained(arch="qwen3-0.6b", smoke=False, device="cuda", n=16,
+                                     rate=4.0, device_pages=64, host_pages=256)
+    loops = {"closed": engines[0], "open": engines[1]}
+    for eng, _ in loops.values():
+        host = eng.pool.host
+        assert host.dtype == (torch.float32 if host_bf16 else torch.float16)
+        if host_bf16:  # the values a bf16 pool would hold, exactly
+            for t in (host.k, host.v):
+                assert torch.equal(t, t.bfloat16().float())
+
+    def residency(eng, moves):
+        """Per request, where its K/V lay when each of its tokens was
+        emitted (the iteration of a ``tok`` event is the ``step`` span that
+        holds it), checked against the tracer's copy spans."""
+        evs = eng.tracer.events()
+        assert eng.tracer.dropped == 0
+        steps = sorted((e.t0, e.t1, e.args["iter"]) for e in evs
+                       if e.ph == "X" and e.track == "engine" and e.name == "step")
+        copies = collections.Counter((e.name, e.args["iter"]) for e in evs
+                                     if e.ph == "X" and e.track.startswith("copy-"))
+        swaps = collections.Counter((m.split("->")[0][5:], it) for ms in moves.values()
+                                    for it, m in ms if m.startswith("swap"))
+        assert copies == swaps  # one copy span per swap, at the iteration that launched it
+        where = {}
+        for e in evs:
+            if e.ph == "n" and e.name == "tok":
+                it = next(i for t0, t1, i in steps if t0 <= e.t0 <= t1)
+                loc = None
+                for mit, m in moves[e.rid]:
+                    if mit <= it:
+                        loc = m.split("->")[-1]
+                where.setdefault(e.rid, []).append((it, loc))
+        return where
+
+    res = {name: residency(*loop) for name, loop in loops.items()}
+    closed, open_ = loops["closed"][0], loops["open"][0]
+    diverged, moved = {}, {}
+    for rid, r in closed.requests.items():
+        x, y = r.out_tokens, open_.requests[rid].out_tokens
+        lc = [loc for _, loc in res["closed"][rid]]
+        lo = [loc for _, loc in res["open"][rid]]
+        if lc != lo:
+            moved[rid] = next((i for i, (a, b) in enumerate(zip(lc, lo)) if a != b),
+                              min(len(lc), len(lo)))
+        if x != y:
+            first = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
+            diverged[rid] = {"first_diff": first, "tokens": len(x), **{
+                name: {"moves": loops[name][1][rid], "token_iter": res[name][rid][first][0],
+                       "residency": res[name][rid][first][1],
+                       "residency_by_token": [loc for _, loc in res[name][rid]]}
+                for name in loops}}
+    return {"host_pool": "bf16 values (float32 storage)" if host_bf16 else "float16",
+            "bitwise_identical": result["gates"]["bitwise_identical"],
+            "requests": len(closed.requests), "diverged": diverged,
+            "residency_differs_from_token": moved}
+
+
 @pytest.mark.cuda
 def test_card_sustained_divergence_record(monkeypatch):
     """The serve CLI's ``--sustained`` A/B (closed-loop lockstep vs open loop
     + plan-ahead, full-width qwen3-0.6b, 16 osc requests at 4 req/s, pools
-    64/256 pages), with each engine's prefills (a second prefill of a
-    request is a recompute preemption) and swaps counted per request.
-    Recorded: which requests' tokens differ, where they first differ, and
-    what each run did to them."""
+    64/256 pages), run twice: with the fp16 host pool (the reference's rule)
+    and again, inside this test only, with the host pool holding bf16
+    values.  Each engine is traced; each request's residency at each of its
+    tokens comes from the tracer's ``tok`` and ``step`` events and its
+    logged moves, held to the tracer's ``copy-*`` spans.  Recorded: which
+    requests' tokens differ, where they first differ, and where each loop
+    kept their K/V then.
+
+    Asserted, as the H100 shows: a request's tokens differ between the
+    loops only after its residency differed; with the host pool holding
+    bf16 values the loops are bitwise identical although the plans still
+    kept some requests in other pools, so the fp16 host pool's rounding is
+    what moves the tokens (host attention in numpy gives the paged decode
+    kernel's bf16 outputs).  Whether the fp16 run diverges depends on which
+    requests the clock-driven plans move, so it is recorded, not asserted."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from repro_torch.launch import serve
+    records = [_sustained_loops(monkeypatch, host_bf16) for host_bf16 in (False, True)]
+    print(json.dumps({"sustained_divergence": records}))
+    for rec in records:
+        for rid, d in rec["diverged"].items():
+            assert rec["residency_differs_from_token"].get(rid, d["first_diff"] + 1) \
+                <= d["first_diff"], (rec["host_pool"], rid, d)
+    bf16 = records[1]
+    assert bf16["residency_differs_from_token"], "no request changed residency: nothing tested"
+    assert bf16["bitwise_identical"] and not bf16["diverged"], bf16
 
-    engines = []
-    init = NeoEngine.__init__
-
-    def counted_init(self, *a, **k):
-        init(self, *a, **k)
-        ev = {"prefills": collections.Counter(), "swap_out": collections.Counter(),
-              "swap_in": collections.Counter()}
-        engines.append((self, ev))
-        prefill = self.executor.prefill
-
-        def count_prefill(reqs, to_host):
-            ev["prefills"].update(r.rid for r in reqs)
-            return prefill(reqs, to_host)
-
-        self.executor.prefill = count_prefill
-        for name in ("swap_out", "swap_in"):
-            fn = getattr(self.transfer, name)
-
-            def count_swap(req, _fn=fn, _name=name):
-                ev[_name][req.rid] += 1
-                return _fn(req)
-
-            setattr(self.transfer, name, count_swap)
-
-    monkeypatch.setattr(NeoEngine, "__init__", counted_init)
-    result = serve.run_sustained(arch="qwen3-0.6b", smoke=False, device="cuda", n=16,
-                                 rate=4.0, device_pages=64, host_pages=256)
-    (closed, ev_c), (open_, ev_o) = engines
-    diverged = {}
-    for rid, r in closed.requests.items():
-        x, y = r.out_tokens, open_.requests[rid].out_tokens
-        if x != y:
-            first = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
-            diverged[rid] = {"first_diff": first, "tokens": len(x),
-                             "closed": {k: ev_c[k][rid] for k in ev_c},
-                             "open": {k: ev_o[k][rid] for k in ev_o}}
-    recomputed = lambda ev: sorted(rid for rid, n in ev["prefills"].items() if n > 1)
-    print(json.dumps({"sustained_divergence": {
-        "bitwise_identical": result["gates"]["bitwise_identical"],
-        "requests": len(closed.requests), "diverged": diverged,
-        "recomputed_closed": recomputed(ev_c), "recomputed_open": recomputed(ev_o),
-        "swapped_closed": sorted(ev_c["swap_out"]), "swapped_open": sorted(ev_o["swap_out"])}}))

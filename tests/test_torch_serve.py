@@ -1,8 +1,10 @@
 """The port's serving front end against the JAX package's: ``run_trace`` on
 the same trace and weights gives the same per-request outputs, and the
 ``serve`` CLI runs on the CPU only when asked — pipelined by default, open
-loop with ``--arrivals``, the sustained-load gate with ``--sustained`` — and
-refuses what is not ported."""
+loop with ``--arrivals``, the sustained-load gate with ``--sustained``,
+traced with ``--trace-out`` — and refuses what is not ported."""
+
+import json
 
 import numpy as np
 import pytest
@@ -96,11 +98,33 @@ def test_cli_runs_pipelined_and_open_loop_on_cpu(flags, expect, capsys):
         assert rc == 0 and '"finished": 3' in out
 
 
+# Refused before the tracer was ported; each path now traces, exports and
+# passes the reconcile audit.
+@pytest.mark.parametrize("arch,flags", [
+    (ARCH, ["--no-pipeline"]),
+    (ARCH, ["--arrivals", "poisson"]),
+    ("rwkv6-7b", ["--no-pipeline"]),
+])
+def test_cli_traces_and_reconciles_on_cpu(arch, flags, tmp_path, capsys):
+    trace, counters = tmp_path / "t.json", tmp_path / "t.counters.jsonl"
+    rc = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--n", "3",
+                     "--rate", "64", "--device-pages", "12", "--host-pages", "32",
+                     "--max-batch-tokens", "128", "--trace-out", str(trace),
+                     "--require-reconcile", *flags])
+    out = capsys.readouterr().out
+    assert rc == 0 and '"finished": 3' in out
+    summary = json.loads(out[out.index("{"): out.index("scheduler modes:")])
+    assert summary["reconcile"]["ok"] and summary["reconcile"]["failed"] == []
+    doc = json.loads(trace.read_text())
+    assert doc["otherData"]["events_dropped"] == 0
+    assert any(e.get("name") == "step" for e in doc["traceEvents"])
+    assert counters.read_text().count("\n") > 0
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--prefix-cache"], "P9"),
     (["--tp", "2"], "P13"),
     (["--spec-decode"], "P10"),
-    (["--trace-out", "t.json"], "P8"),
     (["--spec-k", "2"], "P10"),
 ])
 def test_cli_refuses_unported_options(flags, item):

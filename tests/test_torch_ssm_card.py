@@ -1,8 +1,8 @@
 """The RWKV6 and Mamba2 scan kernels on the card: each held to its plain
 version in both dtypes (ragged T, T = 1, T = 15, T = 4096, B = 3, a
-partial head group, P != N, widths off the 16-byte copy path, a strong decay
-and the full-width shapes included), bitwise equal over two calls, its
-launch and stage counters, and the contiguous engine's tokens through the
+partial head group, P != N, widths off the 16-byte copy path, a strong decay,
+RWKV6 decays below FLT_MIN and the full-width shapes included), bitwise
+equal over two calls, its launch and stage counters, and the contiguous engine's tokens through the
 kernels held to its tokens through the plain versions.  These tests carry the ``cuda``
 marker and skip without a card; the concurrent build is checked everywhere
 with a stand-in compiler."""
@@ -62,11 +62,15 @@ def test_build_all_runs_one_compiler_per_source_concurrently(tmp_path, monkeypat
         _build.build_all(sources)
 
 
-def _rwkv6(seed, B, T, H, N, dtype, device, strong=False):
+def _rwkv6(seed, B, T, H, N, dtype, device, strong=False, tiny_every=0):
+    """``tiny_every`` sets w = 1e-40, below FLT_MIN, on every such token (as
+    ``tests/test_torch_ssm_stages.py`` does)."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.normal(size=(B, T, H, N)).astype(np.float32) for _ in range(3))
     z = rng.normal(size=(B, T, H, N))
     w = np.exp(-np.exp(np.log(5.0) + 0.1 * z if strong else z)).astype(np.float32)
+    if tiny_every:
+        w[:, ::tiny_every] = 1e-40
     u = rng.normal(size=(H, N)).astype(np.float32)
     s0 = (rng.normal(size=(B, H, N, N)) * 0.1).astype(np.float32)
     rkv = [torch.from_numpy(a).to(device, dtype) for a in (r, k, v)]
@@ -114,6 +118,21 @@ def _hold(kern, plain, args, dtype_name):
 ])
 def test_rwkv6_kernel_matches_plain(shape, strong, dtype, cuda):
     args = _rwkv6(31, *shape, getattr(torch, dtype), cuda, strong)
+    _hold(rwkv_ops.rwkv6_scan, lambda *a: rwkv6_chunked(*a, chunk=rwkv_ops.CHUNK), args, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (2, 70, 3, 32),     # ragged T, a 16-token sub-chunk boundary on a tiny decay
+    (1, 512, 64, 64),   # rwkv6-7b at full width
+])
+def test_rwkv6_kernel_matches_plain_below_flt_min(shape, dtype, cuda):
+    """w = 1e-40 on every 7th token: the decays built from 16-token sub-chunk
+    sums of log w (floored at the subnormal 1e-38, log -87.5; the build has no
+    -ftz) stay within the card's tolerance of the plain version."""
+    args = _rwkv6(37, *shape, getattr(torch, dtype), cuda, tiny_every=7)
+    assert float(args[3].min()) == pytest.approx(1e-40, rel=1e-2)
     _hold(rwkv_ops.rwkv6_scan, lambda *a: rwkv6_chunked(*a, chunk=rwkv_ops.CHUNK), args, dtype)
 
 

@@ -50,6 +50,19 @@ Phases, each of which fails the run by raising:
              busy share and its five kernels with the most time, from
              torch.profiler over 8 decode steps of an untraced pipelined
              qwen3-0.6b run;
+3c. prefix  — the two-tier radix prefix cache on the pipelined engine:
+             full-width qwen3-0.6b over 12 multiturn requests (3
+             conversations of 4 turns sharing a 384-token system prompt, the
+             reference benchmark's prefill-heavy shape) driven closed loop
+             (``run_conversations``), device pool 80 pages, host 512: bf16
+             with the cache off, then on and traced (device hits, in-place
+             host hits, copy-on-write pages and demotions each > 0, prefill
+             tokens at most half the cache-off run's, K2 = 28 x prefill
+             calls with a cold row, K1 = 28 x batch-0 passes, reconcile and
+             obs.validate ok; the tokens equal to the cache-off run's are
+             counted and each differing request printed with its prefix's
+             residency), then fp32 with the cache on, every token held to
+             the dense oracle;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
@@ -68,6 +81,8 @@ prints no result.  It imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import gc
 import json
 import math
@@ -644,15 +659,29 @@ def make_trace(n, vocab, seed=0, *, rate=0.0, output_len=32):
     return trace
 
 
+def residency_of(r, host):
+    """Where a prefilled row's prefix came from: cold, a device hit, an
+    in-place host hit, promoted to the device, or demoted to the host with
+    its row."""
+    if r.cached_len == 0:
+        return "cold"
+    if host:
+        return "in-place host hit" if r.prefix_loc == "cpu" else "demoted with its row"
+    return "promoted" if r.prefix_loc == "cpu" else "device hit"
+
+
 def drive(engine, trace, runner):
     """Run ``trace`` through ``runner`` with every launch counter zeroed just
     before and read just after, counting the executor's calls: the serial /
     batch-0 decode passes (each launches the paged decode kernel once per
-    layer), the host lanes (no kernel) and the prefills (each launches the
-    flash prefill kernel once per layer), with each prefill's (B, S)."""
+    layer), the host lanes (no kernel) and the prefills, with those that
+    have a cold row (each launches the flash prefill kernel once per layer;
+    prefix-cache hits prefill their suffix in plain attention, as the
+    reference does).  Also returns each prefill's (B, S) and the residency
+    of each prefilled row's prefix, keyed by prompt."""
     ex = engine.executor
-    calls = {"decode": 0, "decode_batch0": 0, "prefill": 0}
-    shapes = []
+    calls = {"decode": 0, "decode_batch0": 0, "prefill": 0, "prefill_with_cold_row": 0}
+    shapes, residency = [], {}
 
     def counted(name):
         fn = getattr(ex, name)
@@ -660,28 +689,33 @@ def drive(engine, trace, runner):
         def wrapped(*a, **k):
             calls[name] += 1
             if name == "prefill":
-                shapes.append((len(a[0]), max(r.prefill_len for r in a[0])))
+                reqs, to_host = a[0], a[1]
+                shapes.append((len(reqs), max(r.prefill_len for r in reqs)))
+                calls["prefill_with_cold_row"] += any(r.cached_len == 0 for r in reqs)
+                for r, host in zip(reqs, to_host):
+                    residency[tuple(r.prompt)] = residency_of(r, host)
             return fn(*a, **k)
         return wrapped
 
-    for name in calls:
+    for name in ("decode", "decode_batch0", "prefill"):
         setattr(ex, name, counted(name))
     zero_counters()
     metrics = runner(engine, trace)
     launched = counters()
-    return metrics, launched, calls, shapes
+    return metrics, launched, calls, shapes, residency
 
 
 def check_paged_launches(cfg, launched, calls, label):
     """paged_decode = layers x decode passes, flash_prefill = layers x
-    prefills, no scan kernel; the merge kernel follows some attention
-    launches (the rows are long enough to split)."""
+    prefills with a cold row (every prefill without the prefix cache), no
+    scan kernel; the merge kernel follows some attention launches (the rows
+    are long enough to split)."""
     L = cfg.num_layers
     passes = calls["decode"] + calls["decode_batch0"]
-    want = {"paged_decode": L * passes, "flash_prefill": L * calls["prefill"],
+    want = {"paged_decode": L * passes, "flash_prefill": L * calls["prefill_with_cold_row"],
             "rwkv6_scan": 0, "mamba2_ssd": 0}
     got = {k: launched[k] for k in want}
-    if got != want or passes == 0 or calls["prefill"] == 0:
+    if got != want or passes == 0 or calls["prefill_with_cold_row"] == 0:
         raise AssertionError(f"{label}: launches {got} != {want} ({L} layers x {calls})")
     if not 0 < launched["paged_decode_merge"] <= launched["paged_decode"]:
         raise AssertionError(f"{label}: merge kernel launches {launched['paged_decode_merge']} "
@@ -701,7 +735,7 @@ def serve_phase(cfg, device, *, n=8, device_pages=64, host_pages=512, pipeline=F
                                           tracing=tracing), device=device)
     trace = make_trace(n, cfg.vocab_size)
     label = ("traced " if tracing else "") + ("pipelined" if pipeline else "serial")
-    m, launched, calls, shapes = drive(
+    m, launched, calls, shapes, _ = drive(
         engine, trace, lambda e, t: run_trace(e, t, vocab=cfg.vocab_size))
     engine.close()
     check_paged_launches(cfg, launched, calls, label)
@@ -778,7 +812,7 @@ def online_phase(cfg, device, card, *, n=8, rate=4.0):
     engine = NeoEngine(cfg, engine_config(64, 512, pipeline=True), device=device)
     trace = make_trace(n, cfg.vocab_size, seed=1, rate=rate, output_len=16)
     streamed = {}
-    m, launched, calls, _ = drive(engine, trace, lambda e, t: run_online(
+    m, launched, calls, _, _ = drive(engine, trace, lambda e, t: run_online(
         e, t, vocab=cfg.vocab_size, on_token=lambda rid, tok: streamed.setdefault(
             rid, []).append(tok)))
     engine.close()
@@ -910,33 +944,16 @@ def busy_share_phase(torch, cfg, device, card, *, steps=8):
             "card": card}
 
 
-def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, chunk=8,
-                 pipeline=False):
-    """fp32 engine on the same prompts; every emitted token must be the
-    oracle's argmax or within NEAR_TIE of its max logit.  The oracle is the
-    engine's own DenseLM run as a plain contiguous prefill over
-    prompt + out[:i] (rows of one request batched with true_lens), with the
-    plain attention, never the flash prefill kernel.  The pipelined engine
-    must put host rows in batch-1 lanes."""
-    from repro_torch.core.engine import NeoEngine
-
-    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
-    engine = NeoEngine(cfg32, engine_config(device_pages, host_pages, pipeline=pipeline),
-                       device=device)
-    rids = [engine.submit(t.prompt, t.output_len) for t in trace]
-    outs = engine.run_until_done(10_000)
-    engine.close()
-    s = engine.stats
-    if pipeline and not (s.pipelined_steps > 0 and sum(s.lane_counts.values()) > 0):
-        raise AssertionError(f"pipelined parity: no host rows in batch-1 lanes "
-                             f"(lane_counts {s.lane_counts}, {s.pipelined_steps} steps)")
+def dense_oracle_parity(torch, model, runs, chunk=8):
+    """Every token of ``runs`` [(rid, prompt, emitted tokens)] must be the
+    oracle's argmax or within NEAR_TIE of its max logit; the oracle is
+    ``model``'s plain contiguous prefill over prompt + out[:i] (rows of one
+    request batched with true_lens), with the plain attention, never the
+    flash prefill kernel.  Returns the counts."""
     exact = ties = total = 0
     worst_gap = 0.0
-    for rid, t in zip(rids, trace):
-        out = outs[rid]
-        if len(out) != t.output_len:
-            raise AssertionError(f"parity engine: rid {rid} emitted {len(out)} tokens")
-        seqs = [t.prompt + out[:i] for i in range(len(out))]
+    for rid, prompt, out in runs:
+        seqs = [prompt + out[:i] for i in range(len(out))]
         for c0 in range(0, len(seqs), chunk):
             rows = seqs[c0:c0 + chunk]
             S = max(map(len, rows))
@@ -944,7 +961,7 @@ def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, 
             for j, r in enumerate(rows):
                 tok[j, : len(r)] = torch.tensor(r)
             lens = torch.tensor([len(r) for r in rows], dtype=torch.int32)
-            logits, _ = engine.model.prefill(tok, true_lens=lens, impl="plain")
+            logits, _ = model.prefill(tok, true_lens=lens, impl="plain")
             for j in range(len(rows)):
                 want = int(logits[j].argmax())
                 got = out[c0 + j]
@@ -959,11 +976,242 @@ def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, 
                     raise AssertionError(
                         f"parity: rid {rid} token {c0 + j}: engine {got}, oracle {want}, "
                         f"logit gap {gap:.3e} > {NEAR_TIE}")
-    return dict(model=cfg.name, pipeline=pipeline, tokens=total, exact=exact,
-                near_ties=ties, worst_tie_gap=worst_gap,
+    return dict(tokens=total, exact=exact, near_ties=ties, worst_tie_gap=worst_gap)
+
+
+def parity_phase(torch, cfg, device, trace, *, device_pages=64, host_pages=512, chunk=8,
+                 pipeline=False):
+    """fp32 engine on the same prompts, every emitted token held to the
+    dense oracle (:func:`dense_oracle_parity`, the engine's own DenseLM).
+    The pipelined engine must put host rows in batch-1 lanes."""
+    from repro_torch.core.engine import NeoEngine
+
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    engine = NeoEngine(cfg32, engine_config(device_pages, host_pages, pipeline=pipeline),
+                       device=device)
+    rids = [engine.submit(t.prompt, t.output_len) for t in trace]
+    outs = engine.run_until_done(10_000)
+    engine.close()
+    s = engine.stats
+    if pipeline and not (s.pipelined_steps > 0 and sum(s.lane_counts.values()) > 0):
+        raise AssertionError(f"pipelined parity: no host rows in batch-1 lanes "
+                             f"(lane_counts {s.lane_counts}, {s.pipelined_steps} steps)")
+    for rid, t in zip(rids, trace):
+        if len(outs[rid]) != t.output_len:
+            raise AssertionError(f"parity engine: rid {rid} emitted {len(outs[rid])} tokens")
+    counts = dense_oracle_parity(torch, engine.model,
+                                 [(rid, t.prompt, outs[rid]) for rid, t in zip(rids, trace)],
+                                 chunk)
+    return dict(model=cfg.name, pipeline=pipeline, **counts,
                 offloaded_decodes=s.offloaded_decodes, device_decodes=s.device_decodes,
                 pipelined_steps=s.pipelined_steps,
                 lane_counts={str(k): v for k, v in sorted(s.lane_counts.items())})
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache: two-tier radix tree, zero-copy host serving
+# ---------------------------------------------------------------------------
+
+# the reference prefix-cache benchmark's prefill-heavy multiturn shape
+# (benchmarks/prefix_cache.py:39-45): long shared histories, short answers
+PREFIX_SHAPE = dict(system_len=384, context_len=96, user_len_median=64, output_median=10,
+                    max_output=16)
+PREFIX_REQUESTS, PREFIX_TURNS = 12, 4
+# device and host pages (16 tokens each): at the serve phases' 64 device
+# pages every hit but one is served from the host; at 80 one conversation's
+# history stays on the card, so device hits, in-place host hits, promotions
+# and demotions all occur (the schedule does not depend on the tokens: no
+# eos, and prompts carry no outputs)
+PREFIX_POOLS = (80, 512)
+
+
+def prefix_trace(vocab):
+    """12 requests, 3 conversations of 4 turns, every prompt opening with one
+    384-token system prompt."""
+    from repro_torch.serving.traces import multiturn_trace
+
+    return multiturn_trace(PREFIX_REQUESTS, rate=1e9, seed=0, turns=PREFIX_TURNS,
+                           vocab=min(vocab, 500), **PREFIX_SHAPE)
+
+
+def prefix_run(cfg, device, *, cache, tracing=False):
+    """The multiturn conversations through ``run_conversations`` (a turn goes
+    in when its conversation's last one finished) on the pipelined engine
+    with the perf model frozen (``ewma_alpha=0``: the plans follow from the
+    inputs alone, the same in every run of a dtype), counted by
+    :func:`drive`.  Returns (engine, metrics, launches, calls, residency by
+    prompt)."""
+    from repro_torch.config import EngineConfig
+    from repro_torch.core.engine import NeoEngine
+    from repro_torch.launch.serve import run_conversations
+
+    ecfg = EngineConfig(device_pool_pages=PREFIX_POOLS[0], host_pool_pages=PREFIX_POOLS[1],
+                        policy="neo", pipeline=True, hw_profile="h100_sxm", seed=0,
+                        ewma_alpha=0.0, prefix_cache=cache, tracing=tracing)
+    engine = NeoEngine(cfg, ecfg, device=device)
+    m, launched, calls, _, residency = drive(engine, prefix_trace(cfg.vocab_size),
+                                             run_conversations)
+    engine.close()
+    done = [r for r in engine.requests.values() if r.state.name == "FINISHED"]
+    if len(done) != PREFIX_REQUESTS:
+        raise AssertionError(f"prefix phase: only {len(done)}/{PREFIX_REQUESTS} finished")
+    return engine, m, launched, calls, residency
+
+
+def free_card(torch):
+    """Collect the engine just dropped (the counting wrappers keep its
+    executor in a cycle) and give its memory back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prefix_summary(engine, m, launched, calls, residency, card):
+    s = engine.stats
+    out = {"model": engine.cfg.name, "dtype": engine.cfg.activation_dtype,
+           "prefix_cache": engine.prefix_cache is not None,
+           "pools_pages": {"device": PREFIX_POOLS[0], "host": PREFIX_POOLS[1]},
+           "requests": len(m.finished), "prompt_tokens": sum(r.prompt_len for r in m.finished),
+           "prefill_tokens_computed": s.prefill_tokens, "makespan_s": m.makespan,
+           "ttft_s": m.ttft(), "tpot_s": m.tpot(), "iterations": s.iterations,
+           "executor_calls": calls, "kernel_launches": launched,
+           "lane_busy_s": s.lane_busy_time, "host_attention_busy_s": s.host_busy_time,
+           "host_prefix_busy_s": engine.host_attn.prefix_busy_time,
+           "host_prefix_bytes_read": engine.host_attn.prefix_bytes_read,
+           "swap_bytes": engine.pool.swap_bytes, "planahead_hits": s.planahead_hits,
+           "planahead_replans": s.planahead_replans, "planahead_skipped": s.planahead_skipped,
+           "residency": dict(collections.Counter(residency.values())), "card": card}
+    if engine.prefix_cache is not None:
+        out["prefix_stats"] = dataclasses.asdict(engine.prefix_cache.stats)
+        out["hit_rate"] = engine.prefix_cache.stats.hit_rate
+    return out
+
+
+def ttft_by_prompt(engine, m):
+    """Each turn's TTFT (from its submission), keyed by its prompt."""
+    return {tuple(engine.requests[r.rid].prompt): r.ttft for r in m.records}
+
+
+def ttft_split(ttft_on, ttft_off, residency_on):
+    """Mean TTFT of the turns the cache served and of the cold ones, with
+    the cache on, and of the same turns with it off."""
+    mean = lambda xs: sum(xs) / len(xs) if xs else None  # noqa: E731
+    out = {}
+    for kind in ("hit", "cold"):
+        turns = [p for p, where in residency_on.items() if (where == "cold") == (kind == "cold")]
+        out[kind] = {"turns": len(turns), "cache_on_s": mean([ttft_on[p] for p in turns]),
+                     "cache_off_s": mean([ttft_off[p] for p in turns])}
+    return out
+
+
+def prefix_phase(torch, cfg, card):
+    """Full-width qwen3-0.6b on the pipelined engine over the multiturn
+    conversations: (a) bf16 with the cache off; (b) bf16 with the cache on,
+    traced: device hits, in-place host hits, copy-on-write pages and
+    demotions each > 0, prefill tokens at most half of (a)'s, the launch
+    counts of K1 and K2, reconcile() ok with nothing dropped, obs.validate
+    ok on the export with host-prefix and copy-sync spans; the tokens equal
+    to (a)'s are counted, and each request that differs is printed with the
+    residency of its prefix; (c) fp32 with the cache on, every token held
+    to the dense oracle (and counted against an fp32 cache-off run)."""
+    from repro_torch.obs import reconcile
+    from repro_torch.obs.validate import validate
+
+    log(f"[prefix] pools: device {PREFIX_POOLS[0]} pages, host {PREFIX_POOLS[1]} pages of "
+        f"{cfg.kv_block_size} tokens; {PREFIX_REQUESTS} requests in "
+        f"{PREFIX_REQUESTS // PREFIX_TURNS} conversations of {PREFIX_TURNS} turns, shape "
+        + json.dumps(PREFIX_SHAPE))
+    off, m_a, l_a, c_a, r_a = prefix_run(cfg, "cuda", cache=False)
+    check_paged_launches(cfg, l_a, c_a, "prefix phase (a)")
+    sum_a = prefix_summary(off, m_a, l_a, c_a, r_a, card)
+    log(json.dumps({"prefix": {"run": "a: bf16, cache off", **sum_a}}))
+    # runs are compared turn by turn, keyed by the prompt (every turn's is
+    # its own): the rids follow the order in which turns finish
+    tokens_a = {tuple(r.prompt): list(r.out_tokens) for r in off.requests.values()}
+    ttft_a = ttft_by_prompt(off, m_a)
+    del off
+    free_card(torch)
+
+    on, m_b, l_b, c_b, r_b = prefix_run(cfg, "cuda", cache=True, tracing=True)
+    check_paged_launches(cfg, l_b, c_b, "prefix phase (b)")
+    st = on.prefix_cache.stats
+    where = collections.Counter(r_b.values())
+    need = {"device hits": where["device hit"], "in-place host hits": st.inplace_host_hits,
+            "cow copies": st.cow_copies, "demoted pages": st.demoted_pages}
+    if min(need.values()) <= 0:
+        raise AssertionError(f"prefix phase (b): a counter is 0: {need}, residency {where}")
+    if 2 * on.stats.prefill_tokens > sum_a["prefill_tokens_computed"]:
+        raise AssertionError(f"prefix phase (b): {on.stats.prefill_tokens} prefill tokens "
+                             f"computed, more than half of (a)'s "
+                             f"{sum_a['prefill_tokens_computed']}")
+    tr = on.tracer
+    rep = reconcile(tr, on.stats)
+    if tr.dropped or not rep.ok:
+        raise AssertionError(f"prefix phase (b): dropped {tr.dropped}, reconcile "
+                             f"{rep.failed()}: " + json.dumps(rep.summary()))
+    tracks = collections.Counter(e.track for e in tr.events() if e.ph == "X")
+    if tracks["hostattn-prefix"] <= 0 or tracks["copy-sync"] <= 0 or tracks["prefix"] <= 0:
+        raise AssertionError(f"prefix phase (b): spans by track {dict(tracks)}")
+    path = os.path.join(ROOT, "build", "chip_smoke_trace_prefix.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tr.export_chrome(path)
+    fails = validate(path, expect_copy=True)
+    if fails:
+        raise AssertionError(f"prefix phase (b): obs.validate failed: {fails}")
+    same = total = 0
+    differs = {}
+    for rid, r in on.requests.items():
+        want = tokens_a[tuple(r.prompt)]
+        total += len(want)
+        same += sum(x == y for x, y in zip(r.out_tokens, want))
+        if r.out_tokens != want:
+            differs[rid] = {"residency": r_b[tuple(r.prompt)], "first_diff": next(
+                (i for i, (x, y) in enumerate(zip(r.out_tokens, want)) if x != y),
+                min(len(want), len(r.out_tokens))), "tokens": len(want)}
+    sum_b = prefix_summary(on, m_b, l_b, c_b, r_b, card)
+    sum_b.update(ttft_by_turn_kind_s=ttft_split(ttft_by_prompt(on, m_b), ttft_a, r_b),
+                 tokens_equal_to_cache_off=same, tokens=total, differing_requests=differs,
+                 events_recorded=tr.total, events_dropped=tr.dropped,
+                 spans_by_track={k: tracks[k] for k in ("prefix", "copy-sync",
+                                                         "hostattn-prefix")},
+                 reconcile_ok=rep.ok, reconcile_checks=len(rep.checks),
+                 prefill_token_ratio=on.stats.prefill_tokens
+                 / sum_a["prefill_tokens_computed"])
+    log(json.dumps({"prefix": {"run": "b: bf16, cache on, traced", **sum_b}}))
+    split = sum_b["ttft_by_turn_kind_s"]
+    log(f"[prefix] TTFT of the {split['hit']['turns']} hit turns {split['hit']['cache_on_s']:.4f} s "
+        f"(the same turns with the cache off {split['hit']['cache_off_s']:.4f} s), of the "
+        f"{split['cold']['turns']} cold turns {split['cold']['cache_on_s']:.4f} s; prefill lane "
+        f"{on.stats.lane_busy_time.get('prefill', 0.0):.4f} s (cache off "
+        f"{sum_a['lane_busy_s'].get('prefill', 0.0):.4f} s), host-prefix partials "
+        f"{on.host_attn.prefix_busy_time:.4f} s")
+    log(f"[prefix] bf16 cache on vs off: {same} of {total} tokens equal; "
+        f"{len(differs)} requests differ: "
+        + "; ".join(f"rid {rid} ({d['residency']}, first at token {d['first_diff']})"
+                    for rid, d in sorted(differs.items())))
+    del on, tr
+    free_card(torch)
+
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    on32, _, _, _, r_c = prefix_run(cfg32, "cuda", cache=True)
+    runs = [(rid, r.prompt, list(r.out_tokens)) for rid, r in sorted(on32.requests.items())]
+    tokens32 = {tuple(prompt): out for _, prompt, out in runs}
+    parity = dense_oracle_parity(torch, on32.model, runs)
+    st32 = on32.prefix_cache.stats
+    del on32
+    free_card(torch)
+    off32, *_ = prefix_run(cfg32, "cuda", cache=False)
+    same32 = sum(x == y for r in off32.requests.values()
+                 for x, y in zip(r.out_tokens, tokens32[tuple(r.prompt)]))
+    del off32
+    free_card(torch)
+    sum_c = {"run": "c: fp32, cache on", "parity": parity, "hits": st32.hits,
+             "inplace_host_hits": st32.inplace_host_hits, "cow_copies": st32.cow_copies,
+             "demoted_pages": st32.demoted_pages,
+             "residency": dict(collections.Counter(r_c.values())),
+             "tokens_equal_to_fp32_cache_off": same32, "tokens": parity["tokens"],
+             "card": card}
+    log(json.dumps({"prefix": sum_c}))
+    return sum_a, sum_b, sum_c
 
 
 # ---------------------------------------------------------------------------
@@ -1198,6 +1446,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(json.dumps({"serve": online_phase(cfg, "cuda", card)}))
     torch.cuda.empty_cache()
+    prefix_a, prefix_b, _ = prefix_phase(torch, cfg, card)
     ssm = {}
     for arch in ("rwkv6-7b", "zamba2-7b"):
         summary, ssm_trace, tokens, _, _ = ssm_serve_phase(torch, get_config(arch), "cuda")
@@ -1240,6 +1489,7 @@ def main() -> int:
         "launches": pipe_launched["paged_decode"],
         "merge_launches": pipe_launched["paged_decode_merge"],
         "launches_serial_path": launched["paged_decode"],
+        "launches_prefix_path": prefix_b["kernel_launches"]["paged_decode"],
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -1259,6 +1509,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_prefill/kernel.py:105",
         "launches": pipe_launched["flash_prefill"],
         "launches_serial_path": launched["flash_prefill"],
+        "launches_prefix_path": prefix_b["kernel_launches"]["flash_prefill"],
+        "launches_prefix_path_cache_off": prefix_a["kernel_launches"]["flash_prefill"],
         "launches_zamba2": ssm["zamba2-7b"][0]["kernel_launches"]["flash_prefill"],
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,

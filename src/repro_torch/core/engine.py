@@ -43,9 +43,18 @@ the overlap accounting from the spans.  The contiguous path emits
 ``device``/``prefill`` and ``device``/``serial`` spans for the lane windows
 it records (the reference's contiguous path records none).
 
-Tensor parallelism (ROADMAP P13), the prefix cache (P9) and speculative
-decoding (P10) are not ported: building the engine with any of them switched
-on raises ``NotImplementedError``.
+The two-tier radix prefix cache (``EngineConfig.prefix_cache``,
+:mod:`repro_torch.core.prefix_cache`) is the reference's: a request's prompt
+is matched at submit (the scheduler prices its suffix and prefers the host
+when the prefix lives there), pinned at prefill dispatch (shared pages by
+refcount, a copy-on-write page for a match that ends mid-page, deferral when
+the match shrank past the token or page budget), and a finished request's
+pages go into the tree, which reclaims room by demoting device pages to the
+host before dropping any.  With the cache on, decode rows grow their pages
+before the prefills take theirs; with it off, after, as in the reference.
+Tensor parallelism (ROADMAP P13) and speculative decoding (P10) are not
+ported: building the engine with either switched on raises
+``NotImplementedError``.
 
 Fault tolerance: every accepted request is journaled (prompt + sampling
 params + emitted tokens); :meth:`export_journal` / :meth:`replay_journal`
@@ -69,6 +78,7 @@ from repro_torch.core.executor import ContiguousExecutor, PagedExecutor
 from repro_torch.core.host_attention import HostAttention
 from repro_torch.core.kv_cache import DualPool
 from repro_torch.core.perfmodel import PerfModel
+from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.request import Request, RequestState
 from repro_torch.core.scheduler import BatchPlan, NeoScheduler, PoolView, SchedQueues
 from repro_torch.core.transfer import WAIT_TIMEOUT_S, TransferEngine
@@ -160,8 +170,6 @@ class EngineStats:
 def _unsupported(engine_cfg: EngineConfig) -> Optional[str]:
     if engine_cfg.tp > 1:
         return "tensor-parallel serving is not ported yet (ROADMAP P13)"
-    if engine_cfg.prefix_cache:
-        return "the prefix cache is not ported yet (ROADMAP P9)"
     if engine_cfg.spec_decode:
         return "speculative decoding is not ported yet (ROADMAP P10)"
     return None
@@ -231,6 +239,12 @@ class NeoEngine:
                                           host_lanes=engine_cfg.max_host_lanes)
             self.transfer = TransferEngine(self.pool, compute_stream=self._stream)
             self._page = cfg.kv_block_size
+            # the two-tier radix prefix cache (off by default: the uncached
+            # path is the engine without it)
+            self.prefix_cache: Optional[PrefixCache] = (
+                PrefixCache(self.pool, self.transfer,
+                            token_granular=engine_cfg.prefix_token_granular)
+                if engine_cfg.prefix_cache else None)
         else:
             self.executor = ContiguousExecutor(
                 self.model, slots=min(engine_cfg.max_requests, 64),
@@ -238,6 +252,7 @@ class NeoEngine:
             self._page = self.executor.capacity  # 1 "page" == 1 slot for the scheduler
             self.pool = None
             self.host_attn = None
+            self.prefix_cache = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # weights and pools are in place
         self._rng = np.random.default_rng(engine_cfg.seed)
@@ -260,13 +275,15 @@ class NeoEngine:
 
     def attach_tracer(self, tracer: Optional[SpanTracer]) -> None:
         """(Re)wire ``tracer`` through every instrumented component: the
-        scheduler, and on the paged path the executor and the transfer
-        engine (``None`` switches tracing off)."""
+        scheduler, and on the paged path the executor, the transfer engine
+        and the prefix cache (``None`` switches tracing off)."""
         self.tracer = tracer
         self.scheduler.tracer = tracer
         if self.paged:
             self.executor.tracer = tracer
             self.transfer.tracer = tracer
+            if self.prefix_cache is not None:
+                self.prefix_cache.tracer = tracer
 
     # ------------------------------------------------------------------
     # submission
@@ -288,6 +305,11 @@ class NeoEngine:
             arrival_time=self.clock if arrival_time is None else arrival_time,
             eos_token=eos_token,
         )
+        if self.prefix_cache is not None:
+            # longest-prefix match (an estimate, re-matched and pinned at
+            # prefill dispatch) so the scheduler prices the suffix; the
+            # residency steers host placement (zero-copy host serving)
+            req.cached_len, req.prefix_loc = self.prefix_cache.lookup_ex(req.prompt)
         self.requests[rid] = req
         self.scheduler.add_request(req)
         self._journal.append(
@@ -355,10 +377,16 @@ class NeoEngine:
     # ------------------------------------------------------------------
     def _pool_view(self) -> PoolView:
         if self.paged:
+            dev_evict = host_evict = 0
+            if self.prefix_cache is not None:
+                # unpinned cached pages are reclaimable on demand (make_room),
+                # so the scheduler plans against free + evictable
+                dev_evict = self.prefix_cache.evictable_pages("gpu")
+                host_evict = self.prefix_cache.evictable_pages("cpu")
             return PoolView(
                 page_size=self._page,
-                device_free=self.pool.device.free_pages,
-                host_free=self.pool.host.free_pages,
+                device_free=self.pool.device.free_pages + dev_evict,
+                host_free=self.pool.host.free_pages + host_evict,
                 device_total=self.pool.device.num_pages - 1,  # minus scratch
                 host_total=self.pool.host.num_pages,
             )
@@ -398,6 +426,11 @@ class NeoEngine:
                 "outcome": "finished", "tokens": len(req.out_tokens)})
         if req.pages:
             if self.paged:
+                if self.prefix_cache is not None:
+                    # the tree adopts the pages (its own reference) before
+                    # the request releases its own: adopted and still-shared
+                    # pages survive, the rest return to the free list
+                    self.prefix_cache.insert_request(req)
                 self.pool.pool(req.location).free(req.pages)
             else:
                 self.executor.free_slot(req.pages[0])
@@ -437,9 +470,14 @@ class NeoEngine:
         after commit, before dispatch) and clone it into shadows the planner
         thread can mutate.  Returns ``(state, shadows, pools_pred,
         sig_pred)``, or None when the prediction left the scheduler's
-        budget."""
+        budget or, with the prefix cache on, when the step touches the radix
+        tree (prefill pins, frees of possibly shared pages by preemption or
+        swaps, finish-time inserts, growth under eviction pressure)."""
         page = self._page
+        cache_on = self.prefix_cache is not None
         sched = self.scheduler
+        if cache_on and (plan.prefill or plan.preempt or plan.swap_out or plan.swap_in):
+            return None
         # pool counters at the end of the step: swaps' page accounting moved
         # at launch, except swap-in source pages, which return to the host
         # pool at join (drained by the step barrier)
@@ -472,6 +510,8 @@ class NeoEngine:
         for r in rows:
             sr = shadows[r.rid]
             if r.kv_len % page == 0 and r.kv_len // page >= len(r.pages):
+                if cache_on and (host_raw if r.location == "cpu" else dev_raw) < 1:
+                    return None  # make_room would evict: not predictable
                 if r.location == "cpu":
                     host_raw -= 1
                 else:
@@ -496,6 +536,8 @@ class NeoEngine:
             if sr is None or sr.state != RequestState.RUNNING:
                 continue
             if len(sr.out_tokens) >= sr.max_new_tokens:
+                if cache_on:
+                    return None  # the finish inserts into the radix tree
                 if sr.location == "cpu":
                     host_raw += len(sr.pages)
                 else:
@@ -506,10 +548,16 @@ class NeoEngine:
         st.cpu_runq = [r for r in st.cpu_runq if r.state != RequestState.FINISHED]
         if dev_raw < 0 or host_raw < 0:
             return None  # the prediction diverged from the scheduler's budget
+        dev_ev = host_ev = 0
+        if cache_on:
+            # a pure decode step leaves the tree alone (everything else
+            # returned None above), so the evictable counts stand
+            dev_ev = self.prefix_cache.evictable_pages("gpu")
+            host_ev = self.prefix_cache.evictable_pages("cpu")
         pools_pred = PoolView(
             page_size=page,
-            device_free=dev_raw,
-            host_free=host_raw,
+            device_free=dev_raw + dev_ev,
+            host_free=host_raw + host_ev,
             device_total=self.pool.device.num_pages - 1,
             host_total=self.pool.host.num_pages,
         )
@@ -623,6 +671,7 @@ class NeoEngine:
         now = self.clock if now is None else now
         self.clock = now
         host_busy0 = self.host_attn.busy_time if self.paged else 0.0
+        prefix_busy0 = self.host_attn.prefix_busy_time if self.paged else 0.0
         dev_busy0 = self.stats.device_busy_time
         swap_busy0 = self.transfer.stats.busy_time if self.transfer else 0.0
 
@@ -671,6 +720,7 @@ class NeoEngine:
                 host_busy=host_busy,
                 device_busy=self.stats.device_busy_time - dev_busy0,
                 swap_busy=ts.busy_time - swap_busy0,
+                host_prefix_busy=self.host_attn.prefix_busy_time - prefix_busy0,
                 pipelined=self.engine_cfg.pipeline and plan.mode != "serial",
             )
         if self.tracer is not None:
@@ -698,11 +748,22 @@ class NeoEngine:
         # ==== LAUNCH =========================================================
         # recompute preemption (both pools full): drop KV, requeue
         for r in plan.preempt:
-            self.pool.pool(r.location).free(r.pages)
+            self.pool.pool(r.location).free(r.pages)  # refcounted: shared pages survive
             r.pages = []
             r.location = "gpu"
-            r.cached_len = 0
+            r.cached_len = 0  # the replay re-matches the tree at dispatch
             r.prefix_loc = None
+        if self.prefix_cache is not None:
+            # the scheduler planned against free + evictable cached pages:
+            # evict (demote first) so the promised room exists for the swaps.
+            # The device pass runs first: it may demote device nodes INTO the
+            # host pool, so the host room is made afterwards
+            need_dev = sum(len(r.pages) for r in plan.swap_in)
+            if need_dev:
+                self.prefix_cache.make_room("gpu", need_dev)
+            need_host = sum(len(r.pages) for r in plan.swap_out)
+            if need_host:
+                self.prefix_cache.make_room("cpu", need_host)
         # swaps: page accounting moves now; the data moves on the copy
         # streams (pipelined) or inline (serial)
         out_handles: List = []
@@ -720,11 +781,13 @@ class NeoEngine:
             self._launch_planahead(plan)
         dispatch_t0 = time.perf_counter()  # compute-window start (hidden bytes)
 
-        # Page allocation in the serial path's order: prefill pages, then
-        # decode-row pages in gpu/cpu0/cpu1 plan order — the same page
-        # assignment on both paths.  Replayed prefills (recompute
+        # Page allocation in the serial path's order, the same page
+        # assignment on both paths: prefill pages, then decode-row pages in
+        # gpu/cpu0/cpu1 plan order; with the prefix cache on, decode rows
+        # first (the reference's two orders).  Replayed prefills (recompute
         # preemption) re-derive their last token and do not emit.
         page = self._page
+        cache = self.prefix_cache
 
         def _running(rs: List[Request]) -> List[Request]:
             return [r for r in rs
@@ -733,18 +796,24 @@ class NeoEngine:
         rows0 = _running(plan.decode_gpu) + _running(plan.decode_cpu0)
         rows1 = _running(plan.decode_cpu1)
         rows = rows0 + rows1
-        to_host: List[bool] = []
-        for r in plan.prefill:
-            host = r in plan.prefill_to_host
-            r.cached_len = 0
-            r.pages = self.pool.pool("cpu" if host else "gpu").alloc(-(-r.prefill_len // page))
-            to_host.append(host)
         host_flags: List[bool] = []
-        for r in rows:
-            host = r.location == "cpu"
-            if r.kv_len % page == 0 and r.kv_len // page >= len(r.pages):
-                r.pages = r.pages + self.pool.pool(r.location).alloc(1)
-            host_flags.append(host)
+
+        def _grow_decode_pages() -> None:
+            for r in rows:
+                if r.kv_len % page == 0 and r.kv_len // page >= len(r.pages):
+                    if cache is not None:
+                        cache.make_room(r.location, 1)
+                    r.pages = r.pages + self.pool.pool(r.location).alloc(1)
+                host_flags.append(r.location == "cpu")
+
+        if cache is not None:
+            # decode rows were budgeted by the scheduler before the prefills:
+            # grow their pages first, so a prefill's pins cannot take the
+            # evictable pages the rows were admitted against
+            _grow_decode_pages()
+        to_host = self._alloc_prefills(plan)
+        if cache is None:
+            _grow_decode_pages()
 
         # ---- unified lane plan -------------------------------------------
         # One optional DEVICE lane (prefill + batch-0, engine thread) plus K
@@ -899,6 +968,85 @@ class NeoEngine:
                     tr.emit("engine", "dispatch", dispatch_t0, win_end, {"iter": it})
                 for h in out_handles + in_handles:
                     self.stats.swap_hidden_bytes += h.hidden_bytes(dispatch_t0, win_end)
+
+    def _alloc_prefills(self, plan: BatchPlan) -> List[bool]:
+        """Allocate each prefill's pages in its pool; returns whether each
+        prefill that stays in ``plan.prefill`` goes to the host.  With the
+        prefix cache on, the authoritative match pins the shared prefix
+        pages and makes the copy-on-write page, and only the suffix pages
+        are new.  The scheduler admitted each prefill against its submit-time
+        match; a match that shrank since (the tree changed) is released, and
+        the prefill falls back to a cold one or, when its suffix then busts
+        the batch's token budget or the pool lacks the pages, is deferred to
+        the head of the waitqueue, as in the reference."""
+        page = self._page
+        cache = self.prefix_cache
+        token_budget = (self.engine_cfg.max_batch_tokens
+                        - len(plan.decode_gpu) - len(plan.decode_cpu0))
+        to_host: List[bool] = []
+        deferred: List[Request] = []
+        for r in plan.prefill:
+            host = r in plan.prefill_to_host
+            target = "cpu" if host else "gpu"
+            pool = self.pool.pool(target)
+            total = -(-r.prefill_len // page)
+            if cache is None:
+                r.cached_len = 0
+                r.pages = pool.alloc(total)
+                to_host.append(host)
+                continue
+            shared, cow, r.cached_len = cache.acquire(r.prefill_tokens, target)
+            mine = shared + ([cow] if cow is not None else [])
+            if r.suffix_len > token_budget:
+                # the match shrank and the suffix busts the token budget:
+                # release the pins, unwind the acquire (the retry re-runs it)
+                # and the lookup, and defer
+                if mine:
+                    pool.free(mine)
+                cache.retract_acquire()
+                cache.retract_lookup(len(r.prefill_tokens))
+                r.cached_len = 0
+                deferred.append(r)
+                continue
+            fresh = total - len(mine)
+            cache.make_room(target, fresh)
+            if pool.free_pages >= fresh:
+                r.pages = mine + pool.alloc(fresh)
+            else:
+                # the match outgrew the scheduler's page budget: release the
+                # prefix (the pages stay tree-owned and evictable) and fall
+                # back to a cold prefill; the lookup stays counted (a miss)
+                if mine:
+                    pool.free(mine)
+                cache.retract_acquire()
+                r.cached_len = 0
+                if r.suffix_len > token_budget:
+                    cache.retract_lookup(len(r.prefill_tokens))
+                    deferred.append(r)
+                    continue
+                cache.make_room(target, total)
+                if pool.free_pages < total:
+                    # evictable pages were pinned by an earlier prefill this
+                    # step: defer; the retry re-runs acquire
+                    cache.retract_lookup(len(r.prefill_tokens))
+                    deferred.append(r)
+                    continue
+                r.pages = pool.alloc(total)
+            token_budget -= r.suffix_len
+            to_host.append(host)
+        for r in reversed(deferred):
+            # unwind the commit: back to the head of the waitqueue, planned
+            # again next iteration against the true pool state
+            plan.prefill.remove(r)
+            if r in plan.prefill_to_host:
+                plan.prefill_to_host.remove(r)
+            for q in (self.scheduler.gpu_runq, self.scheduler.cpu_runq):
+                if r in q:
+                    q.remove(r)
+            r.state = RequestState.WAITING
+            r.location = "gpu"
+            self.scheduler.waitq.appendleft(r)
+        return to_host
 
     def _step_contiguous(self, plan: BatchPlan, now: float,
                          emitted: List[Tuple[int, int]]) -> None:

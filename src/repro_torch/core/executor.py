@@ -27,7 +27,11 @@ device lane and with each other: each on a thread of a pool of
 ``host_lanes`` workers and on a CUDA stream of its own.  (On the legacy
 default stream a lane's per-layer copy of q/k/v to the host would wait for
 batch-0's queued kernels, and the overlap would silently vanish.)  Cold
-prefill runs the flash prefill kernel once per layer on the padded batch.
+prefill runs the flash prefill kernel once per layer on the padded batch;
+prefix-cache hits prefill only their suffix, over the cached prefix gathered
+from the device pool or, for host rows, over flash partials the host
+computes on its prefix pages in place (plain attention, as the reference's
+jnp: no kernel).
 
 Per-row compute is independent of the other rows, so a row's logits do not
 depend on which rows share its batch. As in the reference, every decode pass
@@ -49,6 +53,7 @@ prefill (one request at a time) and decode (all slots at once).
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -94,6 +99,10 @@ class PagedExecutor:
         self.host_lanes = max(1, host_lanes)
         self._lane_pool = ThreadPoolExecutor(max_workers=self.host_lanes,
                                              thread_name_prefix="neo-hostlane")
+        # the host leg of a prefill with both host and device prefix hits:
+        # a thread of its own, so it never queues behind a busy host lane
+        self._prefix_pool = ThreadPoolExecutor(max_workers=1,
+                                               thread_name_prefix="neo-hostprefix")
         self._lane_streams: Dict[int, Optional[torch.cuda.Stream]] = {}
         self._streams_lock = threading.Lock()
         # tracing (repro_torch.obs): set by the engine; host attention and
@@ -271,18 +280,35 @@ class PagedExecutor:
 
     def close(self, timeout: float = WAIT_TIMEOUT_S) -> None:
         """Stop the lane threads (idempotent); each is joined with a timeout."""
-        self._lane_pool.shutdown(wait=False, cancel_futures=True)
-        for t in list(getattr(self._lane_pool, "_threads", ())):
-            t.join(timeout)
+        for pool in (self._lane_pool, self._prefix_pool):
+            pool.shutdown(wait=False, cancel_futures=True)
+            for t in list(getattr(pool, "_threads", ())):
+                t.join(timeout)
 
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------
-    @torch.inference_mode()
     def prefill(self, reqs: List[Request], to_host: List[bool]) -> np.ndarray:
-        """Cold prefill of ``reqs`` as one padded batch, scattering each
-        request's K/V into the pages already allocated on ``req.pages`` in
-        its pool.  Returns first-token float32 logits [n, V]."""
+        """Prefill ``reqs``, scattering K/V into the pages already
+        allocated on ``req.pages`` in each request's pool.  Prefix-cache hits
+        (``cached_len > 0``) take the suffix prefill over their cached prefix
+        (:meth:`_prefill_cached`); the rest go through the cold path as one
+        padded batch.  Returns first-token float32 logits [n, V]."""
+        warm = [i for i, r in enumerate(reqs) if r.cached_len > 0]
+        if not warm:
+            return self._prefill_cold(reqs, to_host)
+        cold = [i for i, r in enumerate(reqs) if r.cached_len <= 0]
+        warm_logits = self._prefill_cached([reqs[i] for i in warm], [to_host[i] for i in warm])
+        out = np.zeros((len(reqs), warm_logits.shape[-1]), np.float32)
+        out[warm] = warm_logits
+        if cold:
+            out[cold] = self._prefill_cold([reqs[i] for i in cold], [to_host[i] for i in cold])
+        return out
+
+    @torch.inference_mode()
+    def _prefill_cold(self, reqs: List[Request], to_host: List[bool]) -> np.ndarray:
+        """Cold prefill of ``reqs`` as one padded batch (the flash prefill
+        kernel once per layer); returns first-token float32 logits [n, V]."""
         n, page = len(reqs), self.page
         S = max(r.prefill_len for r in reqs)
         tokens = np.zeros((n, S), np.int64)
@@ -311,6 +337,123 @@ class PagedExecutor:
                 self.pool.add_swap_bytes(2 * kr.numel() * self.pool.host.k.element_size())
             else:
                 self.pool.device.put_pages(r.pages, kr, vr)
+        return logits.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # suffix prefill over a cached prefix (prefix cache)
+    # ------------------------------------------------------------------
+    def _prefill_cached(self, reqs: List[Request], to_host: List[bool]) -> np.ndarray:
+        """Suffix-only prefill of prefix-cache hits.  ``req.pages`` holds the
+        shared and copy-on-write prefix pages in the target pool, then the
+        suffix pages.  Device rows gather their cached prefix from the device
+        pool (:meth:`_prefill_cached_gather`); host rows are served in place
+        (:meth:`_prefill_cached_host`): each layer's suffix queries go to the
+        host, which computes flash partials over the prefix pages where they
+        lie, so the prefix never crosses PCIe.  With rows of both kinds the
+        host leg runs on a thread and stream of its own (not a host lane's,
+        which may be busy with this step's decode), beside the gather on the
+        engine thread (it never touches the device pool)."""
+        host_idx = [i for i, h in enumerate(to_host) if h]
+        gpu_idx = [i for i, h in enumerate(to_host) if not h]
+        if not (host_idx and gpu_idx):
+            if host_idx:
+                return self._prefill_cached_host(reqs)
+            return self._prefill_cached_gather(reqs)
+
+        def host_leg() -> np.ndarray:
+            with on_stream(self._lane_stream(0)):  # host lanes are 1, 2, ...; 0 is free
+                return self._prefill_cached_host([reqs[i] for i in host_idx])
+
+        fut = self._prefix_pool.submit(host_leg)
+        out_g = self._prefill_cached_gather([reqs[i] for i in gpu_idx])
+        out_h = fut.result(timeout=WAIT_TIMEOUT_S)
+        out = np.zeros((len(reqs), out_h.shape[-1]), np.float32)
+        out[host_idx] = out_h
+        out[gpu_idx] = out_g
+        return out
+
+    def _suffix_inputs(self, reqs: List[Request]):
+        """Suffix tokens [n, S] (padded), suffix lengths, prefix lengths and
+        the prefix page tables [n, T] (T = the longest prefix's pages; the
+        padding is masked by the prefix lengths)."""
+        n, page = len(reqs), self.page
+        S = max(r.suffix_len for r in reqs)
+        tokens = np.zeros((n, S), np.int64)
+        suffix_lens = np.zeros((n,), np.int32)
+        prefix_lens = np.zeros((n,), np.int32)
+        tables = np.zeros((n, max(-(-r.cached_len // page) for r in reqs)), np.int32)
+        for i, r in enumerate(reqs):
+            tokens[i, : r.suffix_len] = r.prefill_tokens[r.cached_len:]
+            suffix_lens[i] = r.suffix_len
+            prefix_lens[i] = r.cached_len
+            npg = -(-r.cached_len // page)
+            tables[i, :npg] = r.pages[:npg]
+        return tokens, suffix_lens, prefix_lens, tables
+
+    def _scatter_suffix(self, reqs: List[Request], k_all: torch.Tensor,
+                        v_all: torch.Tensor, to_host: bool) -> None:
+        """Token-granular write of each row's suffix K/V [L, n, S, KV, hd]
+        at offset ``cached_len``, which may lie inside the copy-on-write
+        page; into the host pool, the PCIe bytes of the copy are counted."""
+        page = self.page
+        pids: List[int] = []
+        offs: List[int] = []
+        for r in reqs:
+            pos = range(r.cached_len, r.cached_len + r.suffix_len)
+            pids += [r.pages[p // page] for p in pos]
+            offs += [p % page for p in pos]
+        k = torch.cat([k_all[:, i, : r.suffix_len] for i, r in enumerate(reqs)], dim=1)
+        v = torch.cat([v_all[:, i, : r.suffix_len] for i, r in enumerate(reqs)], dim=1)
+        pool = self.pool.host if to_host else self.pool.device
+        pool.write_token_range(pids, offs, k, v)
+        if to_host:  # layer-wise PCIe copy of the freshly computed K/V
+            self.pool.add_swap_bytes(2 * k.numel() * self.pool.host.k.element_size())
+
+    @torch.inference_mode()
+    def _prefill_cached_gather(self, reqs: List[Request]) -> np.ndarray:
+        """Device rows: gather each row's cached prefix pages from the
+        device pool into [L, n, T, KV, hd] (T = the longest prefix's pages),
+        prefill the suffix over it and write the suffix K/V into the device
+        pool."""
+        tokens, suffix_lens, prefix_lens, tables = self._suffix_inputs(reqs)
+        idx = torch.from_numpy(tables).to(self.device, torch.long)
+        pool = self.pool.device
+        L, KV, hd = pool.num_layers, self.cfg.num_kv_heads, self.cfg.head_dim
+        T = tables.shape[1] * self.page
+        pk = pool.k[:, idx].reshape(L, len(reqs), T, KV, hd)
+        pv = pool.v[:, idx].reshape(L, len(reqs), T, KV, hd)
+        logits, k_all, v_all = self.model.prefill_with_prefix(
+            torch.from_numpy(tokens), pk, pv, torch.from_numpy(prefix_lens),
+            true_lens=torch.from_numpy(suffix_lens))
+        self._scatter_suffix(reqs, k_all, v_all, to_host=False)
+        return logits.cpu().numpy()
+
+    def _host_prefix_cb(self, tables: np.ndarray, prefix_lens: np.ndarray, layer: int,
+                        q: torch.Tensor):
+        """One layer's prefix partials on the host: the suffix queries come
+        over from the card, :meth:`HostAttention.prefix_partials` reads the
+        prefix pages in place.  Traced as span ``L{layer}`` on
+        ``hostattn-prefix``."""
+        tr = self.tracer
+        t0 = time.perf_counter() if tr is not None else 0.0
+        out = self.host.prefix_partials(layer, q.float().cpu().numpy(), tables, prefix_lens)
+        if tr is not None:
+            tr.emit("hostattn-prefix", f"L{layer}", t0, time.perf_counter(),
+                    {"rows": int(tables.shape[0])})
+        return out
+
+    @torch.inference_mode()
+    def _prefill_cached_host(self, reqs: List[Request]) -> np.ndarray:
+        """Host rows, zero-copy: the cached prefix pages stay in the host
+        pool and are read in place, at their absolute positions, by the
+        per-layer callback; only the computed suffix K/V crosses PCIe (its
+        write into the host pool)."""
+        tokens, suffix_lens, prefix_lens, tables = self._suffix_inputs(reqs)
+        logits, k_all, v_all = self.model.prefill_with_host_prefix(
+            torch.from_numpy(tokens), torch.from_numpy(prefix_lens),
+            prefix_cb=functools.partial(self._host_prefix_cb, tables, prefix_lens),
+            true_lens=torch.from_numpy(suffix_lens))
+        self._scatter_suffix(reqs, k_all, v_all, to_host=True)
         return logits.cpu().numpy()
 
 

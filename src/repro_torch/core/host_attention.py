@@ -14,8 +14,9 @@ properties, as in the reference:
 * **GQA aware**: scores are computed per KV head over its query group.
 
 The executor hands it each layer's host rows explicitly (TrQKV → CPU attn
-→ TrO); the prefix-cache entry ``prefix_partials`` is not ported yet
-(ROADMAP P9).
+→ TrO).  :meth:`HostAttention.prefix_partials` serves the prefix cache's
+zero-copy host path: flash partials of a suffix prefill's queries over a
+host-resident cached prefix, read in place.
 """
 
 from __future__ import annotations
@@ -64,6 +65,12 @@ class HostAttention:
         # study); lock-protected because worker threads update it
         self.busy_time = 0.0
         self.bytes_read = 0
+        # zero-copy host-prefix gathers (suffix prefill over an in-place
+        # host-resident prefix), kept apart from busy_time so the perf
+        # model's cpu_attn calibration sees decode attention only; this pair
+        # backs PerfModel.t_host_prefix
+        self.prefix_busy_time = 0.0
+        self.prefix_bytes_read = 0
         self._acct_lock = threading.Lock()
 
     # ------------------------------------------------------------------
@@ -150,6 +157,55 @@ class HostAttention:
         with self._acct_lock:
             self.busy_time += time.perf_counter() - t0
         return out
+
+    # ------------------------------------------------------------------
+    # zero-copy host serving: prefix partials for the suffix prefill
+    # ------------------------------------------------------------------
+    def prefix_partials(
+        self,
+        layer: int,
+        q: np.ndarray,  # [B, S, H, hd] suffix queries (padded rows allowed)
+        tables: np.ndarray,  # [B, MP] page ids in the HOST pool
+        prefix_lens: np.ndarray,  # [B] valid cached-prefix tokens per row
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Flash partials of suffix queries over host-resident prefix pages,
+        read in place at their absolute positions: the cached prefix never
+        crosses PCIe, only these partials go back to the card, where
+        :func:`repro_torch.models.attention.suffix_attention_merge` combines
+        them with the causal suffix scores.  Rows with ``prefix_lens == 0``
+        return ``m = -1e30`` so the merge discards them.  Returns
+        ``(acc [B,S,H,hd], l [B,S,H], m [B,S,H])`` float32."""
+        B, S, H, hd = q.shape
+        KV = self.pool_k.shape[3]
+        qpk = H // KV
+        scale = 1.0 / np.sqrt(hd)
+        acc = np.zeros((B, S, H, hd), np.float32)
+        l = np.zeros((B, S, H), np.float32)
+        m = np.full((B, S, H), -1e30, np.float32)
+        t0 = time.perf_counter()
+        for b in range(B):
+            T = int(prefix_lens[b])
+            if T <= 0:
+                continue
+            ids = tables[b, : -(-T // self.page)]
+            k = self.pool_k[layer, ids].reshape(-1, KV, hd)[:T]
+            v = self.pool_v[layer, ids].reshape(-1, KV, hd)[:T]
+            with self._acct_lock:
+                # DRAM bytes at the pool's dtype, before the f32 cast (the
+                # decode path's bytes_read convention)
+                self.prefix_bytes_read += k.nbytes + v.nbytes
+            k = k.astype(np.float32)
+            v = v.astype(np.float32)
+            qg = q[b].astype(np.float32).reshape(S, KV, qpk, hd)
+            s = np.einsum("skqd,tkd->skqt", qg, k, optimize=True) * scale
+            mb = np.max(s, axis=-1)  # [S, KV, qpk]
+            e = np.exp(s - mb[..., None])
+            acc[b] = np.einsum("skqt,tkd->skqd", e, v, optimize=True).reshape(S, H, hd)
+            l[b] = np.sum(e, axis=-1).reshape(S, H)
+            m[b] = mb.reshape(S, H)
+        with self._acct_lock:
+            self.prefix_busy_time += time.perf_counter() - t0
+        return acc, l, m
 
     def close(self) -> None:
         if self._tp is not None:

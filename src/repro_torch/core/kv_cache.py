@@ -17,7 +17,8 @@ listener.
 
 Two sets of page I/O: the blocking whole-request copy of the serial path
 (:meth:`PagePool.read_pages` / :meth:`PagePool.put_pages`,
-:meth:`DualPool.swap_request`), and the primitives of the asynchronous
+:meth:`DualPool.swap_request`; the prefix cache's page copies use the same
+pair), and the primitives of the asynchronous
 transfers of :mod:`repro_torch.core.transfer` — :meth:`PagePool.gather`
 (whole pages, all layers, into a staging tensor on the pool's device, cast
 there), :meth:`PagePool.scatter` (a staging tensor back into pages) and
@@ -176,6 +177,19 @@ class PagePool:
         idx = torch.as_tensor(list(pages), dtype=torch.long, device=self.k.device)
         self.k[:, idx] = k.to(self.dtype)
         self.v[:, idx] = v.to(self.dtype)
+
+    def write_token_range(self, page_ids: Sequence[int], offsets: Sequence[int],
+                          k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write per-token K/V across all layers: ``k``/``v`` [L, T, KV, hd]
+        land at (``page_ids[t]``, ``offsets[t]``), cast to this pool's dtype
+        (on the card, before a copy to the host), on the current stream.
+        The suffix prefill fills a copy-on-write page from an arbitrary token
+        offset with it."""
+        dev = self.k.device
+        ids = torch.as_tensor(list(page_ids), dtype=torch.long, device=dev)
+        offs = torch.as_tensor(list(offsets), dtype=torch.long, device=dev)
+        self.k[:, ids, offs] = k.to(self.dtype).to(dev)
+        self.v[:, ids, offs] = v.to(self.dtype).to(dev)
 
 
 def copy_async(t: torch.Tensor, device: torch.device, stream

@@ -45,8 +45,10 @@ argument is replaced by stream ordering:
 Thread-safety contract (the reference's): ``swap_out``/``swap_in`` and any
 join that applies a staged device write (joining swap-ins) run on the
 engine thread; joining swap-outs is safe from any thread.  Every wait takes
-a timeout.  The prefix cache's ``copy_pages`` is not ported (ROADMAP P9),
-nor are the per-shard streams of tensor parallelism (P13).
+a timeout.  The prefix cache's :meth:`TransferEngine.copy_pages` runs
+synchronously on the engine thread and the compute stream, as the
+reference's runs on the caller's thread.  The per-shard streams of tensor
+parallelism are not ported (ROADMAP P13).
 """
 
 from __future__ import annotations
@@ -297,6 +299,49 @@ class TransferEngine:
         handle._apply = apply
         self._enqueue("in", handle, gather)
         return handle
+
+    # ------------------------------------------------------------------
+    # page-granular copies (prefix cache: promote / demote / COW)
+    # ------------------------------------------------------------------
+    def copy_pages(self, pages: List[int], src: str, dst: str) -> List[int]:
+        """Copy ``pages`` from the ``src`` pool into freshly allocated pages
+        of the ``dst`` pool ("gpu" | "cpu"); returns the new page ids.
+
+        Runs synchronously on the engine thread, on the compute stream, with
+        the PCIe byte accounting of the swaps at the host pool's width.  A
+        device read comes after every write queued on the compute stream (a
+        prefill that just filled the page) and before any later kernel that
+        writes a page freed after it; the stream is synchronised before the
+        call returns, so a host page it wrote is complete.  The source pages
+        are left untouched: the prefix cache releases them with refcounted
+        ``free`` where it must."""
+        self._ensure_open()
+        if not pages:
+            return []
+        src_pool, dst_pool = self.pool.pool(src), self.pool.pool(dst)
+        tr = self.tracer
+        t0c = time.perf_counter() if tr is not None else 0.0
+        compute = self._compute()
+        with on_stream(compute):
+            k, v = src_pool.read_pages(pages)
+            new_pages = dst_pool.alloc(len(pages))
+            dst_pool.put_pages(new_pages, k, v)
+            if compute is not None:
+                compute.synchronize()
+        nbytes = 0
+        if src != dst:  # a PCIe crossing
+            host = self.pool.host
+            nbytes = 2 * host.k[:, :1].numel() * host.k.element_size() * len(pages)
+            with self._lock:
+                if dst == "cpu":
+                    self.stats.bytes_out += nbytes
+                else:
+                    self.stats.bytes_in += nbytes
+            self.pool.add_swap_bytes(nbytes)
+        if tr is not None:
+            tr.emit("copy-sync", f"{src}->{dst}", t0c, time.perf_counter(),
+                    {"pages": len(pages), "nbytes": nbytes})
+        return new_pages
 
     def _enqueue(self, kind: str, handle: TransferHandle, fn: Callable[[], None]) -> None:
         with self._lock:

@@ -11,7 +11,9 @@ one of two loops, as the JAX launcher does:
   finish, while plan-ahead builds the next iteration's plan.
 
 ``--sustained`` runs :func:`run_sustained`, the A/B gate of closed-loop
-lockstep against open loop with plan-ahead.
+lockstep against open loop with plan-ahead.  :func:`run_conversations` is
+the closed-loop multi-turn driver of the reference's prefix-cache
+benchmark (a conversation's next turn goes in when its last one finished).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --trace osc --n 8 --rate 4 --policy neo
@@ -36,15 +38,26 @@ summary; with ``--require-reconcile`` it exits 1 when the audit fails:
   PYTHONPATH=src python -m repro_torch.obs.validate trace.json \
       --expect-host-lane --expect-copy --min-adopts 1
 
-The prefix cache, tensor parallelism and speculative decoding (``--spec-k``
-included) raise ``NotImplementedError`` naming their ROADMAP item.
+``--prefix-cache`` switches the two-tier radix prefix cache on; its summary
+keys (``prefill_tokens_computed``, ``hit_rate``, ``prefix_*``,
+``inplace_host_hits``, ...) are the reference's, and so are its gates:
+``--require-hits`` exits 1 on a zero hit rate, ``--host-serving`` unless a
+host-resident prefix was served in place with next to no PCIe bytes:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --trace multiturn --prefix-cache --require-hits --host-serving
+
+Tensor parallelism and speculative decoding (``--spec-k`` included) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import time
+from typing import Dict
 
 import numpy as np
 
@@ -60,7 +73,7 @@ SLO_TTFT, SLO_TPOT = 10.0, 1.0  # the JAX launcher's defaults
 
 
 def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
-    """Copy EngineStats counters into a ServeMetrics."""
+    """Copy EngineStats and prefix-cache counters into a ServeMetrics."""
     s = engine.stats
     metrics.iterations = s.iterations
     metrics.mode_counts = dict(s.mode_counts)
@@ -84,6 +97,19 @@ def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
     metrics.plan_busy_time = s.plan_busy_time
     metrics.planahead_hidden_time = s.planahead_hidden_time
     metrics.rejected_requests = s.rejected_requests
+    if getattr(engine, "prefix_cache", None) is not None:
+        ps = engine.prefix_cache.stats
+        metrics.prefix_hit_rate = ps.hit_rate
+        metrics.prefix_hits = ps.hits
+        metrics.prefix_lookups = ps.lookups
+        metrics.prefix_hit_tokens = ps.hit_tokens
+        metrics.prefix_promoted_pages = ps.promoted_pages
+        metrics.prefix_demoted_pages = ps.demoted_pages
+        metrics.prefix_evicted_pages = ps.evicted_pages
+        metrics.prefix_cow_copies = ps.cow_copies
+        metrics.inplace_host_hits = ps.inplace_host_hits
+        metrics.host_served_hit_tokens = ps.host_served_hit_tokens
+        metrics.host_hit_pcie_bytes = ps.host_hit_pcie_bytes
     if engine.pool is not None:
         metrics.swap_bytes = engine.pool.swap_bytes
 
@@ -127,6 +153,53 @@ def run_trace(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,
             break
         if not emitted and i < len(pending):
             time.sleep(max(0.0, pending[i].arrival_time - (time.perf_counter() - t0)))
+    metrics.makespan = time.perf_counter() - t0
+    _mirror_stats(engine, metrics)
+    return metrics
+
+
+def run_conversations(engine: NeoEngine, trace, *, max_iters: int = 100_000) -> ServeMetrics:
+    """Closed-loop multi-turn driver, the reference benchmark's
+    (``benchmarks/prefix_cache.py::drive``): the conversations of a
+    materialised ``multiturn`` trace run side by side, and a conversation's
+    next turn (turns in prompt-length order: each extends the last) is
+    submitted only after its previous turn finished, the user having read
+    the answer.  Each turn's record starts when it is submitted, so its TTFT
+    is the wait the user sees."""
+    by_conv = collections.defaultdict(list)
+    for t in trace:
+        by_conv[t.conv].append(t)
+    convs = [sorted(c, key=lambda t: t.prompt_len) for _, c in sorted(by_conv.items())]
+    metrics = ServeMetrics()
+    records = {}
+    cursors = [0] * len(convs)
+    pending: Dict[int, int] = {}  # rid -> conversation
+    iters = 0
+    t0 = time.perf_counter()
+    while iters < max_iters:
+        now = time.perf_counter() - t0
+        busy = set(pending.values())
+        for ci, conv in enumerate(convs):
+            if cursors[ci] < len(conv) and ci not in busy:
+                tr = conv[cursors[ci]]
+                cursors[ci] += 1
+                rid = engine.submit(tr.prompt, tr.output_len, arrival_time=now)
+                records[rid] = RequestRecord(rid, now, tr.prompt_len, tr.output_len)
+                metrics.records.append(records[rid])
+                pending[rid] = ci
+        if not pending:
+            break
+        engine.step(now=now)
+        iters += 1
+        done_now = time.perf_counter() - t0
+        for rid in list(pending):
+            req, rec = engine.requests[rid], records[rid]
+            if req.first_token_time is not None and rec.first_token_time is None:
+                rec.first_token_time = done_now
+            if req.finish_time is not None:
+                rec.finish_time = done_now
+                rec.status = "cancelled" if req.state == RequestState.ABORTED else "finished"
+                del pending[rid]
     metrics.makespan = time.perf_counter() - t0
     _mirror_stats(engine, metrics)
     return metrics
@@ -283,8 +356,6 @@ def run_sustained(*, arch: str = "qwen3-0.6b", smoke: bool = True,
 
 def _unported_flags(args) -> str:
     """The first flag asking for something the port does not run yet."""
-    if args.prefix_cache or args.require_hits or args.host_serving:
-        return "the prefix cache is not ported yet (ROADMAP P9)"
     if args.tp != 1:
         return "tensor-parallel serving is not ported yet (ROADMAP P13)"
     if (args.spec_decode or args.draft_model or args.require_accepts
@@ -314,9 +385,14 @@ def main(argv=None) -> int:
                     help="disable multi-lane batch-1 splitting")
     ap.add_argument("--max-host-lanes", type=int, default=EngineConfig.max_host_lanes,
                     help="upper bound K on concurrent host lanes per plan")
-    ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--require-hits", action="store_true")
-    ap.add_argument("--host-serving", action="store_true")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="two-tier radix prefix cache (copy-on-write KV page sharing)")
+    ap.add_argument("--require-hits", action="store_true",
+                    help="exit 1 if the prefix-cache hit rate is 0")
+    ap.add_argument("--host-serving", action="store_true",
+                    help="exit 1 unless a host-resident prefix was served in place "
+                         "(inplace_host_hits > 0) with host-hit PCIe bytes within a "
+                         "small epsilon")
     ap.add_argument("--arrivals", default="closed",
                     help="closed = lockstep runner (run_trace); poisson = open loop "
                          "(run_online) with the --trace generator's arrivals; "
@@ -380,14 +456,15 @@ def main(argv=None) -> int:
         max_host_lanes=args.max_host_lanes,
         planahead=not args.no_planahead,
         max_waiting=args.max_waiting,
+        prefix_cache=args.prefix_cache,
         tracing=tracing,
         seed=args.seed,
     )
     open_loop = args.arrivals != "closed"
     print(f"[serve] arch={cfg.name} policy={args.policy} device={args.device} "
           f"pipeline={not args.no_pipeline} microbatch={not args.no_microbatch} "
-          f"planahead={not args.no_planahead} arrivals={args.arrivals} "
-          f"pools=({args.device_pages},{args.host_pages})")
+          f"prefix_cache={args.prefix_cache} planahead={not args.no_planahead} "
+          f"arrivals={args.arrivals} pools=({args.device_pages},{args.host_pages})")
     engine = NeoEngine(cfg, ecfg, device=args.device)
     if args.arrivals.startswith("replay:"):
         trace = get_trace(args.arrivals, args.n, args.rate, args.seed)
@@ -423,6 +500,37 @@ def main(argv=None) -> int:
     if args.require_reconcile and not report.ok:
         print(f"[serve] FAIL: the span timeline disagrees with EngineStats: {report.failed()}")
         return 1
+    if args.require_hits and m.prefix_hit_rate <= 0.0:
+        print("[serve] FAIL: prefix-cache hit rate is 0 on a shared-prefix trace")
+        return 1
+    if args.host_serving:
+        return _host_serving_gate(engine, m)
+    return 0
+
+
+def _host_serving_gate(engine, m: ServeMetrics) -> int:
+    """The reference's zero-copy host-serving gate: at least one in-place
+    host hit, and host-hit PCIe bytes within two pages plus 10% of the
+    host-served volume (a host preference the balancer bounced falls back
+    to the device and rightly promotes its prefix; wholesale promotion of
+    host-resident prefixes fails)."""
+    page_bytes = page_tokens = 0
+    if engine.prefix_cache is not None:
+        page_bytes = engine.prefix_cache.page_nbytes()
+        page_tokens = engine.prefix_cache.page
+    served_pages = m.host_served_hit_tokens / max(page_tokens, 1)
+    eps = int(page_bytes * (2 + 0.1 * served_pages))
+    if m.inplace_host_hits <= 0:
+        print("[serve] FAIL: no in-place host-served prefix hits (inplace_host_hits == 0) "
+              "under --host-serving")
+        return 1
+    if m.host_hit_pcie_bytes > eps:
+        print(f"[serve] FAIL: host-resident prefix hits crossed PCIe "
+              f"({m.host_hit_pcie_bytes} B > eps {eps} B)")
+        return 1
+    print(f"[serve] host-serving OK: inplace_host_hits={m.inplace_host_hits} "
+          f"host_served_hit_tokens={m.host_served_hit_tokens} "
+          f"host_hit_pcie_bytes={m.host_hit_pcie_bytes}")
     return 0
 
 

@@ -11,6 +11,11 @@ JAX package leaves these to XLA.
   cache; the dense oracle's decode path and zamba2's shared-attention decode.
 * :func:`write_kv` — write each row's new K/V at its own position (zamba2's
   ring buffer writes at ``lens % capacity``).
+* :func:`prefix_attention` / :func:`suffix_attention_merge` — a prefix-cache
+  hit's suffix prefill over a cached prefix gathered from the device pool,
+  or over flash partials the host computed on its own prefix pages (plain
+  einsums and softmax, as the reference writes them in jnp; products in the
+  activation dtype, scores and the merge in float32).
 
 The engine's device-row decode attention over the paged pool is the CUDA
 kernel in :mod:`repro_torch.kernels.paged_decode`.
@@ -131,3 +136,72 @@ def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k_new: torch.Tensor,
     p = pos[rows].long().clamp(0, S - 1)
     cache_k[rows, p] = k_new[rows].to(cache_k.dtype)
     cache_v[rows, p] = v_new[rows].to(cache_v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# suffix prefill over a cached prefix (prefix cache)
+# ---------------------------------------------------------------------------
+
+
+def _suffix_scores(q: torch.Tensor, kn: torch.Tensor, scale: float) -> torch.Tensor:
+    """Causal float32 scores of the suffix queries over the suffix keys
+    [B, S, H, S]: query i sees keys 0..i."""
+    S = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bqhk", q, kn).float() * scale
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    return torch.where(causal[None, :, None, :], s, NEG_INF)
+
+
+def prefix_attention(
+    q: torch.Tensor,  # [B, S, H, hd] suffix queries
+    k_pre: torch.Tensor,  # [B, T, KV, hd] cached prefix K, padded to T
+    v_pre: torch.Tensor,
+    prefix_lens: torch.Tensor,  # [B] valid prefix tokens per row
+    k_new: torch.Tensor,  # [B, S, KV, hd] the suffix's own K/V
+    v_new: torch.Tensor,
+) -> torch.Tensor:
+    """Attention of a partial prefill that starts at a nonzero KV offset:
+    query i of row b sits at absolute position ``prefix_lens[b] + i`` and
+    attends over the row's valid cached prefix plus the suffix causally, in
+    one softmax over the concatenated scores (prefix padding masked).
+    Returns [B, S, H, hd] in the activation dtype."""
+    T = k_pre.shape[1]
+    qpk = q.shape[2] // k_new.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kp, vp = _repeat_kv(k_pre, qpk), _repeat_kv(v_pre, qpk)
+    kn, vn = _repeat_kv(k_new, qpk), _repeat_kv(v_new, qpk)
+    s_pre = torch.einsum("bqhd,bkhd->bqhk", q, kp).float() * scale
+    valid = torch.arange(T, device=q.device)[None, :] < prefix_lens.to(q.device)[:, None]
+    s_pre = torch.where(valid[:, None, None, :], s_pre, NEG_INF)
+    p = torch.softmax(torch.cat([s_pre, _suffix_scores(q, kn, scale)], dim=-1), dim=-1)
+    o = torch.einsum("bqhk,bkhd->bqhd", p[..., :T].to(vp.dtype), vp)
+    return o + torch.einsum("bqhk,bkhd->bqhd", p[..., T:].to(vn.dtype), vn)
+
+
+def suffix_attention_merge(
+    q: torch.Tensor,  # [B, S, H, hd] suffix queries
+    k_new: torch.Tensor,  # [B, S, KV, hd] the suffix's own K/V
+    v_new: torch.Tensor,
+    pre_acc: torch.Tensor,  # [B, S, H, hd] prefix flash partials (host)
+    pre_l: torch.Tensor,  # [B, S, H]
+    pre_m: torch.Tensor,  # [B, S, H]; -1e30 marks rows with no prefix
+) -> torch.Tensor:
+    """The zero-copy host path of :func:`prefix_attention`: the host has
+    computed flash partials ``(acc, l, m)`` over its in-place prefix pages;
+    this computes the causal suffix attention on the card and merges the
+    two by log-sum-exp, which is the joint softmax over [prefix, causal
+    suffix].  Returns [B, S, H, hd] float32."""
+    qpk = q.shape[2] // k_new.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kn, vn = _repeat_kv(k_new, qpk), _repeat_kv(v_new, qpk)
+    s_new = _suffix_scores(q, kn, scale)
+    m_new = s_new.amax(dim=-1)  # [B, S, H]; the diagonal keeps it finite
+    e = torch.exp(s_new - m_new[..., None])
+    l_new = e.sum(dim=-1)
+    acc_new = torch.einsum("bqhk,bkhd->bqhd", e.to(vn.dtype), vn).float()
+    m_tot = torch.maximum(pre_m, m_new)
+    c_pre = torch.exp(pre_m - m_tot)  # 0 where there is no prefix
+    c_new = torch.exp(m_new - m_tot)
+    num = pre_acc * c_pre[..., None] + acc_new * c_new[..., None]
+    den = pre_l * c_pre + l_new * c_new
+    return num / torch.clamp(den, min=1e-30)[..., None]

@@ -6,13 +6,17 @@ package's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``w_gate [d, f]``)
 so :mod:`repro_torch.models.bridge` maps one onto the other leaf for leaf.
 Layers are an ``nn.ModuleList`` instead of the reference's ``vmap``-stacked
 groups; the serve entry points are :meth:`DenseLM.prefill` (cold prefill,
-per-layer K/V out) and :meth:`DenseLM.decode` (one token over a contiguous
-cache — the dense oracle the paged engine is held to).
+per-layer K/V out), :meth:`DenseLM.decode` (one token over a contiguous
+cache — the dense oracle the paged engine is held to) and, for prefix-cache
+hits, :meth:`DenseLM.prefill_with_prefix` (the suffix over a cached prefix
+gathered from the device pool) and :meth:`DenseLM.prefill_with_host_prefix`
+(the suffix over a prefix the host serves in place, through a per-layer
+callback).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -212,18 +216,84 @@ class DenseLM(nn.Module):
             x, k, v = blk.full(self.cfg, x, impl)
             ks.append(k)
             vs.append(v)
-        if true_lens is None:
-            lens = torch.full((B,), S, dtype=torch.int32, device=self.device)
-        else:
-            lens = true_lens.to(self.device, torch.int32)
-        last = x[torch.arange(B, device=self.device), (lens.long() - 1).clamp(0, S - 1)]
-        logits = self.final_logits(last)
+        lens = self._row_lens(B, S, true_lens)
+        logits = self._logits_at(x, lens)
         k_all, v_all = torch.stack(ks), torch.stack(vs)
         if capacity > S:
             pad = (0, 0, 0, 0, 0, capacity - S)
             k_all = torch.nn.functional.pad(k_all, pad)
             v_all = torch.nn.functional.pad(v_all, pad)
         return logits, {"k": k_all, "v": v_all, "lens": lens}
+
+    def _row_lens(self, B: int, S: int, true_lens: Optional[torch.Tensor]) -> torch.Tensor:
+        if true_lens is None:
+            return torch.full((B,), S, dtype=torch.int32, device=self.device)
+        return true_lens.to(self.device, torch.int32)
+
+    def _logits_at(self, x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """Next-token logits at each row's last valid position ``lens - 1``."""
+        B, S = x.shape[:2]
+        return self.final_logits(
+            x[torch.arange(B, device=self.device), (lens.long() - 1).clamp(0, S - 1)])
+
+    # -- serve: partial prefill over a cached prefix (prefix cache) ----------
+    def _suffix_prefill(self, tokens: torch.Tensor, prefix_lens: torch.Tensor,
+                        attend, true_lens: Optional[torch.Tensor]):
+        """The layer stack of a suffix prefill: positions offset by
+        ``prefix_lens``, each layer's attention ``attend(i, q, k, v)``.
+        Returns (logits [B, V], suffix k/v [L, B, S, KV, hd])."""
+        cfg, dev = self.cfg, self.device
+        B, S = tokens.shape
+        prefix_lens = prefix_lens.to(dev)
+        positions = prefix_lens.long()[:, None] + torch.arange(S, device=dev)[None, :]
+        x = self.embed_tokens(tokens.to(dev))
+        ks, vs = [], []
+        for i, blk in enumerate(self.layers):
+            h = rms_norm(x, blk.ln1, cfg.rms_eps)
+            q, k, v = project_qkv(blk.attn, cfg, h, positions)
+            x = x + out_proj(blk.attn, attend(i, q, k, v).to(x.dtype))
+            x = x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps))
+            ks.append(k)
+            vs.append(v)
+        return self._logits_at(x, self._row_lens(B, S, true_lens)), torch.stack(ks), torch.stack(vs)
+
+    @torch.inference_mode()
+    def prefill_with_prefix(self, tokens: torch.Tensor, prefix_k: torch.Tensor,
+                            prefix_v: torch.Tensor, prefix_lens: torch.Tensor, *,
+                            true_lens: Optional[torch.Tensor] = None):
+        """Prefill only the suffix ``tokens`` [B, S] of prompts whose first
+        ``prefix_lens[b]`` tokens have cached K/V: ``prefix_k``/``prefix_v``
+        [L, B, T, KV, hd] (roped at their own positions, padded to T).  Every
+        layer attends over prefix + causal suffix
+        (:func:`~repro_torch.models.attention.prefix_attention`).  Returns
+        (next-token logits [B, V], suffix k/v [L, B, S, KV, hd])."""
+        dt = self.act_dtype
+        pk, pv = prefix_k.to(self.device, dt), prefix_v.to(self.device, dt)
+        lens = prefix_lens.to(self.device)
+        return self._suffix_prefill(
+            tokens, prefix_lens,
+            lambda i, q, k, v: attn_lib.prefix_attention(q, pk[i], pv[i], lens, k, v),
+            true_lens)
+
+    @torch.inference_mode()
+    def prefill_with_host_prefix(self, tokens: torch.Tensor, prefix_lens: torch.Tensor, *,
+                                 prefix_cb: Callable,
+                                 true_lens: Optional[torch.Tensor] = None):
+        """:meth:`prefill_with_prefix` for a prefix the host serves in place
+        (zero-copy host serving): every layer hands its suffix queries
+        [B, S, H, hd] to ``prefix_cb(layer, q) -> (acc, l, m)``, float32
+        flash partials over the host-pool prefix pages (arrays or tensors),
+        and merges them with the causal suffix attention on this model's
+        device (:func:`~repro_torch.models.attention.suffix_attention_merge`).
+        The callback takes the place of the reference's ordered
+        ``io_callback``; the prefix itself never crosses PCIe."""
+        dev = self.device
+
+        def attend(i, q, k, v):
+            acc, l, m = (torch.as_tensor(t).to(dev) for t in prefix_cb(i, q))
+            return attn_lib.suffix_attention_merge(q, k, v, acc, l, m)
+
+        return self._suffix_prefill(tokens, prefix_lens, attend, true_lens)
 
     # -- serve: decode over a contiguous cache (the oracle) ------------------
     @torch.inference_mode()

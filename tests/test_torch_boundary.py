@@ -30,7 +30,8 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-for n in ("repro_torch.core.transfer", "repro_torch.kernels.flash_prefill.ops",
+for n in ("repro_torch.core.transfer", "repro_torch.core.prefix_cache",
+          "repro_torch.kernels.flash_prefill.ops",
           "repro_torch.kernels.flash_prefill.ref", "repro_torch.obs",
           "repro_torch.obs.tracer", "repro_torch.obs.reconcile", "repro_torch.obs.validate"):
     assert n in names, n
@@ -88,12 +89,30 @@ def test_entry_points_refuse_cpu_fallback(no_cuda):
 
 @pytest.mark.parametrize("option,item", [
     (dict(pipeline=False, tp=2), "P13"),
-    (dict(pipeline=False, prefix_cache=True), "P9"),
     (dict(pipeline=False, spec_decode=True), "P10"),
 ])
 def test_unported_engine_options_raise(option, item):
     with pytest.raises(NotImplementedError, match=item):
         NeoEngine(CFG, EngineConfig(**option), device="cpu")
+
+
+def test_prefix_cache_engine_builds_on_cpu():
+    """``prefix_cache=True`` (refused before the cache was ported) builds the
+    radix tree over the engine's pools and transfer engine, wires the tracer
+    into it, and serves a repeated prompt from it."""
+    eng = NeoEngine(CFG, EngineConfig(prefix_cache=True, tracing=True, device_pool_pages=16,
+                                      host_pool_pages=16, max_batch_tokens=64), device="cpu")
+    try:
+        cache = eng.prefix_cache
+        assert cache is not None and cache.pool is eng.pool and cache.transfer is eng.transfer
+        assert cache.tracer is eng.tracer
+        prompt = list(range(1, 2 * CFG.kv_block_size + 3))
+        for _ in range(2):
+            eng.submit(prompt, 2)
+            eng.run_until_done(50)
+        assert cache.stats.hits == 1 and cache.stats.hit_tokens == len(prompt) - 1
+    finally:
+        eng.close()
 
 
 def test_tracing_engine_builds_on_cpu():

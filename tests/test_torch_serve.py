@@ -2,9 +2,11 @@
 the same trace and weights gives the same per-request outputs, and the
 ``serve`` CLI runs on the CPU only when asked — pipelined by default, open
 loop with ``--arrivals``, the sustained-load gate with ``--sustained``,
-traced with ``--trace-out`` — and refuses what is not ported."""
+traced with ``--trace-out``, the prefix cache with ``--prefix-cache`` and its
+gates — and refuses what is not ported."""
 
 import json
+import types
 
 import numpy as np
 import pytest
@@ -13,14 +15,17 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro.config import EngineConfig as RefEngineConfig  # noqa: E402
+from repro.configs import get_config as ref_full  # noqa: E402
 from repro.configs import get_smoke_config as ref_smoke  # noqa: E402
+from repro.core import engine as ref_engine_mod  # noqa: E402
 from repro.core.engine import NeoEngine as RefEngine  # noqa: E402
 from repro.launch import serve as ref_serve  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 from repro.serving.traces import get_trace as ref_get_trace  # noqa: E402
 
 from repro_torch.config import EngineConfig  # noqa: E402
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import engine as engine_mod  # noqa: E402
 from repro_torch.core.engine import NeoEngine  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.bridge import params_from_reference  # noqa: E402
@@ -121,8 +126,111 @@ def test_cli_traces_and_reconciles_on_cpu(arch, flags, tmp_path, capsys):
     assert counters.read_text().count("\n") > 0
 
 
+def _virtual_clock(dt):
+    """A ``time`` stand-in whose clock advances ``dt`` per reading (and by
+    the slept time), so ``run_trace`` submits each request at the same loop
+    turn on both sides whatever the host's speed."""
+    now = [0.0]
+
+    def perf_counter():
+        now[0] += dt
+        return now[0]
+
+    def sleep(s):
+        now[0] += s
+
+    return types.SimpleNamespace(perf_counter=perf_counter, sleep=sleep, time=perf_counter)
+
+
+class _FrozenConfig:
+    """An EngineConfig factory with the perf model frozen (``ewma_alpha=0``)
+    and one hardware profile, so both launchers plan alike."""
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    def __call__(self, **kw):
+        return self.cls(**{**kw, "ewma_alpha": 0.0, "hw_profile": "h100_sxm"})
+
+    def __getattr__(self, name):
+        return getattr(self.cls, name)
+
+
+PREFIX_KEYS = ("prefill_tokens_computed", "hit_rate", "prefix_hit_tokens", "prefix_hits",
+               "prefix_lookups", "prefix_promoted_pages", "prefix_demoted_pages",
+               "prefix_evicted_pages", "prefix_cow_copies", "inplace_host_hits",
+               "host_served_hit_tokens", "host_hit_pcie_MB")
+
+
+def test_cli_prefix_cache_matches_reference(monkeypatch, capsys):
+    """``--prefix-cache --require-hits --host-serving`` on the multiturn
+    trace (refused before the cache was ported) exits 0, with every gate
+    held, and its summary's prefix-cache keys equal the reference
+    launcher's on the same arguments (virtual arrival clock, frozen perf
+    model on both sides)."""
+    args = ["--smoke", "--trace", "multiturn", "--prefix-cache", "--require-hits",
+            "--host-serving"]
+    summaries = {}
+    for side, mod in (("ref", ref_serve), ("port", serve)):
+        monkeypatch.setattr(mod, "time", _virtual_clock(0.05))
+        monkeypatch.setattr(mod, "EngineConfig", _FrozenConfig(mod.EngineConfig))
+        rc = mod.main(args + (["--device", "cpu"] if side == "port" else []))
+        out = capsys.readouterr().out
+        assert rc == 0, out[-2000:]
+        assert "host-serving OK" in out
+        summaries[side] = json.loads(out[out.index("{"): out.index("scheduler modes:")])
+    got = {k: summaries["port"][k] for k in PREFIX_KEYS}
+    assert got == {k: summaries["ref"][k] for k in PREFIX_KEYS}
+    assert got["inplace_host_hits"] > 0 and got["prefix_cow_copies"] > 0
+    assert summaries["port"]["terminal_counts"]["finished"] == 16
+
+
+def _plan_at_full_width(monkeypatch, mod, engine_module, full):
+    """Run ``mod``'s ``--smoke`` CLI planned as at full width: the engine's
+    perf model and scheduler see ``full`` while the model keeps the smoke
+    depth and width, with ``full``'s vocabulary so that the trace's prompts
+    are the full-width run's (the schedule does not depend on the tokens)."""
+    perf_for_arch = engine_module.PerfModel.for_arch
+    scheduler = engine_module.NeoScheduler
+    monkeypatch.setattr(engine_module.PerfModel, "for_arch",
+                        lambda cfg, *a, **k: perf_for_arch(full, *a, **k))
+    monkeypatch.setattr(engine_module, "NeoScheduler",
+                        lambda cfg, *a, **k: scheduler(full, *a, **k))
+    smoke = mod.get_smoke_config
+    monkeypatch.setattr(mod, "get_smoke_config",
+                        lambda arch: smoke(arch).replace(vocab_size=full.vocab_size))
+
+
+@pytest.mark.parametrize("dt,want_rc", [(0.03, 1), (0.05, 0)])
+def test_cli_prefix_cache_full_width_schedule_matches_reference(monkeypatch, capsys, dt,
+                                                                want_rc):
+    """``--prefix-cache --require-hits --host-serving`` at the CLI's default
+    pools, planned as for full-width qwen3-0.6b (smoke weights), on a
+    virtual arrival clock with the perf model frozen: the port's summary
+    equals the reference's, exit code included.  Whether the host-serving
+    gate holds depends on the clock, on the reference as on the port: at
+    0.05 s a reading the hits are served in place; at 0.03 s (a faster
+    loop against the same arrivals) no hit is, and the gate fails."""
+    args = ["--smoke", "--trace", "multiturn", "--prefix-cache", "--require-hits",
+            "--host-serving"]
+    summaries, rcs = {}, {}
+    for side, mod, eng_mod, full in (("ref", ref_serve, ref_engine_mod, ref_full(ARCH)),
+                                     ("port", serve, engine_mod, get_config(ARCH))):
+        _plan_at_full_width(monkeypatch, mod, eng_mod, full)
+        monkeypatch.setattr(mod, "time", _virtual_clock(dt))
+        monkeypatch.setattr(mod, "EngineConfig", _FrozenConfig(mod.EngineConfig))
+        rcs[side] = mod.main(args + (["--device", "cpu"] if side == "port" else []))
+        out = capsys.readouterr().out
+        summaries[side] = json.loads(out[out.index("{"): out.index("scheduler modes:")])
+    keys = PREFIX_KEYS + ("planahead_hits", "planahead_replans", "planahead_skipped")
+    got = {k: summaries["port"][k] for k in keys}
+    assert got == {k: summaries["ref"][k] for k in keys}
+    assert rcs == {"ref": want_rc, "port": want_rc}
+    assert (got["inplace_host_hits"] > 0) == (want_rc == 0)
+    assert summaries["port"]["terminal_counts"]["finished"] == 16
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--prefix-cache"], "P9"),
     (["--tp", "2"], "P13"),
     (["--spec-decode"], "P10"),
     (["--spec-k", "2"], "P10"),

@@ -63,6 +63,23 @@ Phases, each of which fails the run by raising:
              counted and each differing request printed with its prefix's
              residency), then fp32 with the cache on, every token held to
              the dense oracle;
+3d. spec    — speculative decoding through ``launch.serve.run_trace`` on
+             the pipelined engine: (a) full-width qwen3-0.6b, bf16, pools
+             512/512 (no row leaves the card), 8 repetition-heavy requests,
+             32 outputs: spec off, the n-gram drafter (K <= 4), a replay
+             drafter (every draft accepted) and a wrong one (none
+             accepted) give bitwise equal tokens and equal pages in use,
+             K1 = 28 x (decode passes + verify passes) with as many merges;
+             (b) the same prompts with pools 64/512 (host pseudo-rows in
+             verify passes): fp32 spec on held to the dense oracle and
+             equal to fp32 spec off; bf16 spec on vs off counted, each
+             differing request printed with its residency; (c) qwen3-14b
+             with a qwen3-0.6b draft model (``--draft-model``), both full
+             width, 4 requests of 256-512 tokens, 16 outputs: tokens equal
+             spec off's, K2 = 28 x draft prefills + 40 x target prefill
+             calls; K1 and K2 are first held to their plain versions at
+             qwen3-14b's shapes (5 query heads per KV head) and the draft
+             windows in phase 2;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
@@ -221,30 +238,40 @@ def kernel_phase(torch):
     # with the kernel also timed at other pages-per-split (the sweep that
     # chose ops.PAGES_PER_SPLIT)
     from repro_torch.kernels.paged_decode.ops import PAGES_PER_SPLIT
-    from repro_torch.kernels.paged_decode.ops import _launch as launch
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     timed = {}
     for label, B, lens in (("main", 8, [rng.randint(257, 800) for _ in range(8)]),
                            ("long", 64, [2048] * 64)):
-        q, kp, vp, bt, ln = make_case(torch, B, 16, 8, 128, 16, lens, torch.bfloat16, seed=9)
-        out = kern(q, kp, vp, bt, ln)
-        err = float((out.float() - paged_decode_ref(q, kp, vp, bt, ln).float()).abs().max())
-        t_k = time_ms(torch, lambda: kern(q, kp, vp, bt, ln), flush)
-        t_p = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, bt, ln), flush)
-        t_l = time_ms(torch, library_call(torch, q, kp, vp, bt, ln, 16), flush)
-        sweep = {pps: time_ms(torch, lambda: launch(q, kp, vp, bt, ln, pps), flush)
-                 for pps in (4, 8, 16, 32)}
-        b_ms, b_by = bound(q, lens, 16, 8, 128)
-        timed[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                            bound_by=b_by, max_abs_err=err, B=B, sum_lens=sum(lens),
-                            pages_per_split_ms=sweep)
-        log(f"[kernel] timing {label}: B={B} H=16 KV=8 hd=128 bf16 sum(lens)={sum(lens)} "
-            f"kernel={t_k:.4f} ms plain={t_p:.4f} ms library={t_l:.4f} ms "
-            f"bound={b_ms:.4f} ms ({b_by}) max_abs_err={err:.3e}; kernel at "
-            f"pages_per_split (default {PAGES_PER_SPLIT}): "
-            + ", ".join(f"{k}: {v:.4f} ms" for k, v in sweep.items()))
+        timed[label] = decode_time(torch, flush, label, B, 16, 8, 128, lens, sweep=(4, 8, 16, 32))
+        log(f"[kernel] paged_decode kernel at pages_per_split (default {PAGES_PER_SPLIT}): "
+            + ", ".join(f"{k}: {v:.4f} ms" for k, v in timed[label]["pages_per_split_ms"].items()))
     return timed, worst
+
+
+def decode_time(torch, flush, label, B, H, KV, hd, lens, sweep=()):
+    """Kernel, plain version and the SDPA yardstick at one bf16 decode shape
+    (pages of 16 tokens), the kernel's error, its bound, and the kernel at
+    each pages-per-split of ``sweep``."""
+    from repro_torch.kernels.paged_decode.ops import _launch as launch
+    from repro_torch.kernels.paged_decode.ops import paged_decode_attention as kern
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+
+    q, kp, vp, bt, ln = make_case(torch, B, H, KV, hd, 16, lens, torch.bfloat16, seed=9)
+    out = kern(q, kp, vp, bt, ln)
+    err = float((out.float() - paged_decode_ref(q, kp, vp, bt, ln).float()).abs().max())
+    t_k = time_ms(torch, lambda: kern(q, kp, vp, bt, ln), flush)
+    t_p = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, bt, ln), flush)
+    t_l = time_ms(torch, library_call(torch, q, kp, vp, bt, ln, 16), flush)
+    by_split = {pps: time_ms(torch, lambda: launch(q, kp, vp, bt, ln, pps), flush)
+                for pps in sweep}
+    b_ms, b_by = bound(q, lens, 16, KV, hd)
+    log(f"[kernel] timing {label}: B={B} H={H} KV={KV} hd={hd} bf16 sum(lens)={sum(lens)} "
+        f"kernel={t_k:.4f} ms plain={t_p:.4f} ms library={t_l:.4f} ms "
+        f"bound={b_ms:.4f} ms ({b_by}) max_abs_err={err:.3e}")
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, B=B, sum_lens=sum(lens), pages_per_split_ms=by_split,
+                shape=f"B={B} H={H} KV={KV} hd={hd} page=16 bf16 sum(lens)={sum(lens)}")
 
 
 def row_invariance(torch, kern):
@@ -398,6 +425,46 @@ def flash_kernel_phase(torch):
                                       dt_name="float32")}
     del flush
     return timed, worst
+
+
+def spec_kernel_phase(torch):
+    """K1 and K2 at the speculative path's shapes, against their plain
+    versions in fp32 and bf16, then timed in bf16: qwen3-14b's attention (40
+    query heads over 8 KV heads, an odd 5 per group; K1 over a verify pass
+    of 4 rows x 5 pseudo-rows, K2 over a prompt and over the padded batch of
+    the phase's 4 prompts) and the draft model's prefill windows (qwen3-0.6b,
+    S = 64 and a short one)."""
+    import random
+
+    from repro_torch.kernels.paged_decode.ops import paged_decode_attention as kern
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+
+    rng = random.Random(14)
+    lens = [n + j for n in (rng.randint(256, 528) for _ in range(4)) for j in range(5)]
+    worst = {}
+    for dt_name in ("float32", "bfloat16"):
+        q, kp, vp, bt, ln = make_case(torch, 20, 40, 8, 128, 16, lens, getattr(torch, dt_name),
+                                      seed=40)
+        out = kern(q, kp, vp, bt, ln)
+        torch.cuda.synchronize()
+        err = _close(torch, "paged_decode", dt_name, "qwen3-14b verify pass",
+                     [("o", out, paged_decode_ref(q, kp, vp, bt, ln))])
+        worst[dt_name] = err
+        log(f"[kernel] paged_decode {dt_name} qwen3-14b B=20 H=40 KV=8 hd=128 "
+            f"lens={lens[:10]} max_abs_err={err:.3e} tol={TOL[dt_name]} ok")
+    cases = [dict(B=1, S=512, H=40, KV=8, hd=128, causal=True, window=0),
+             dict(B=4, S=509, H=40, KV=8, hd=128, causal=True, window=0),
+             dict(B=1, S=64, H=16, KV=8, hd=128, causal=True, window=0),
+             dict(B=1, S=37, H=16, KV=8, hd=128, causal=True, window=0)]
+    flash_worst = flash_sweep(torch, cases, seed=400)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    timed = {"decode_qwen3_14b": decode_time(torch, flush, "qwen3-14b verify pass", 20, 40, 8,
+                                             128, lens),
+             "prefill_qwen3_14b": flash_time(torch, flush, "qwen3-14b", 1, 512, 40, 8, 128, 0),
+             "prefill_draft_window": flash_time(torch, flush, "draft window", 1, 64, 16, 8, 128,
+                                                0)}
+    del flush
+    return timed, worst, flash_worst
 
 
 def _close(torch, name, dt_name, case, pairs):
@@ -1215,6 +1282,349 @@ def prefix_phase(torch, cfg, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: speculative decoding (draft -> one batched verify pass -> accept)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4  # EngineConfig.spec_k: drafts per row and step at most
+SPEC_REQUESTS, SPEC_OUTPUT = 8, 32
+
+
+def spec_trace(vocab, seed=5):
+    """8 repetition-heavy requests at t = 0: one 64-token base repeated 4
+    times, then a tail uniform in [32, 128] (the reference test's
+    construction, at full width), 32 outputs each."""
+    import numpy as np
+
+    from repro_torch.serving.traces import TraceRequest
+
+    rng = np.random.default_rng(seed)
+    base = list(map(int, rng.integers(1, vocab, 64)))
+    trace = []
+    for _ in range(SPEC_REQUESTS):
+        tail = list(map(int, rng.integers(1, vocab, int(rng.integers(32, 129)))))
+        prompt = base * 4 + tail
+        trace.append(TraceRequest(0.0, len(prompt), SPEC_OUTPUT, prompt=prompt))
+    return trace
+
+
+class ReplayDrafter:
+    """Proposes the recorded continuation of a run with speculation off:
+    every draft is accepted (forced full accepts at depth K)."""
+
+    def __init__(self, prompts, outs):
+        self.table = {}
+        for p, o in zip(prompts, outs):
+            seq = list(p) + list(o)
+            for t in range(len(o)):
+                self.table[tuple(seq[:len(p) + t])] = list(o[t:])
+
+    def propose(self, tokens, k):
+        return self.table.get(tuple(tokens), [])[:k]
+
+
+class WrongDrafter(ReplayDrafter):
+    """Proposes one token that differs from the recorded next token: every
+    draft is rejected (forced rollback on every verify pass)."""
+
+    def __init__(self, prompts, outs, vocab):
+        super().__init__(prompts, outs)
+        self.vocab = vocab
+
+    def propose(self, tokens, k):
+        cont = super().propose(tokens, k)
+        return [(cont[0] + 1) % self.vocab] if cont else []
+
+
+def spec_run(cfg, trace, *, device_pages, host_pages, spec, drafter=None, label="",
+             all_merge=True):
+    """The trace through ``launch.serve.run_trace`` on the pipelined paged
+    engine, counted by :func:`drive`; the verify passes are counted apart
+    (the calls of the executor's decode made inside the chain), with their
+    largest row count, and each request's residency at each emitted token
+    is logged.  ``all_merge``: every K1 launch is followed by a merge (no
+    pass of host rows only).  Returns (engine, metrics, launches, calls,
+    spec record)."""
+    from repro_torch.config import EngineConfig
+    from repro_torch.core.engine import NeoEngine
+    from repro_torch.core.executor import _bucket
+    from repro_torch.launch.serve import run_trace
+
+    ecfg = EngineConfig(device_pool_pages=device_pages, host_pool_pages=host_pages,
+                        policy="neo", pipeline=True, hw_profile="h100_sxm", seed=0,
+                        spec_decode=spec, spec_k=SPEC_K)
+    engine = NeoEngine(cfg, ecfg, device="cuda")
+    if drafter is not None:
+        engine.drafter = drafter
+    rec = {"verify_passes": 0, "max_pseudo_rows": 0, "host_pseudo_row_passes": 0,
+           "residency": collections.defaultdict(list)}
+    ex, in_chain = engine.executor, [False]
+    decode, chain, step = ex.decode, engine._run_spec_chain, engine._step
+
+    def counted_decode(rows, flags):
+        if in_chain[0]:
+            rec["verify_passes"] += 1
+            rec["max_pseudo_rows"] = max(rec["max_pseudo_rows"], len(rows))
+            rec["host_pseudo_row_passes"] += any(flags)
+        return decode(rows, flags)
+
+    def counted_chain(*a):
+        in_chain[0] = True
+        try:
+            return chain(*a)
+        finally:
+            in_chain[0] = False
+
+    def located_step(now):
+        emitted = step(now)
+        for rid, _ in emitted:
+            rec["residency"][rid].append(engine.requests[rid].location)
+        return emitted
+
+    ex.decode, engine._run_spec_chain, engine._step = counted_decode, counted_chain, located_step
+    m, launched, calls, _, _ = drive(engine, trace, lambda e, t: run_trace(
+        e, t, vocab=cfg.vocab_size))
+    engine.close()
+    done = [r for r in engine.requests.values() if r.state.name == "FINISHED"]
+    if len(done) != len(trace):
+        raise AssertionError(f"spec phase {label}: only {len(done)}/{len(trace)} finished")
+    s = engine.stats
+    if rec["verify_passes"] != s.spec_steps:
+        raise AssertionError(f"spec phase {label}: {rec['verify_passes']} verify passes, "
+                             f"{s.spec_steps} spec steps")
+    base = calls["decode"] + calls["decode_batch0"] - rec["verify_passes"]
+    L = cfg.num_layers
+    # K1 once per layer per decode and verify pass, each followed by a merge
+    # (device rows of 9+ pages; a host-only pass launches no merge); K2 once
+    # per layer per prefill call, the draft model's included
+    draft_prefills = getattr(engine.drafter, "prefills", 0)
+    draft_layers = engine.drafter.model.cfg.num_layers if draft_prefills else 0
+    want = {"paged_decode": L * (base + s.spec_steps),
+            "flash_prefill": L * calls["prefill_with_cold_row"] + draft_layers * draft_prefills,
+            "rwkv6_scan": 0, "mamba2_ssd": 0}
+    got = {k: launched[k] for k in want}
+    merges = launched["paged_decode_merge"]
+    if got != want or not (merges == want["paged_decode"] if all_merge
+                           else 0 < merges <= want["paged_decode"]):
+        raise AssertionError(f"spec phase {label}: launches {got} != {want}, merges {merges} "
+                             f"({L} layers x ({base} decode passes + {s.spec_steps} verify "
+                             f"passes), {L} x {calls['prefill_with_cold_row']} prefill calls, "
+                             f"{draft_layers} x {draft_prefills} draft prefills)")
+    if sum(k * v for k, v in s.accept_len_hist.items()) != s.accepted_tokens:
+        raise AssertionError(f"spec phase {label}: histogram {s.accept_len_hist} does not "
+                             f"sum to {s.accepted_tokens} accepted tokens")
+    rec["max_verify_bucket"] = _bucket(rec["max_pseudo_rows"]) if rec["max_pseudo_rows"] else 0
+    rec["base_decode_passes"] = base
+    rec["pages_in_use"] = (engine.pool.device.used_pages, engine.pool.host.used_pages)
+    return engine, m, launched, calls, rec
+
+
+def spec_tokens(engine):
+    return {rid: list(r.out_tokens) for rid, r in engine.requests.items()}
+
+
+def spec_summary(engine, m, launched, rec, card, **extra):
+    s = engine.stats
+    return {"model": engine.cfg.name, "dtype": engine.cfg.activation_dtype,
+            "spec": engine.drafter is not None,
+            "drafter": type(engine.drafter).__name__ if engine.drafter is not None else None,
+            "requests": len(m.finished), "makespan_s": m.makespan,
+            "output_tok_s": m.throughput, "ttft_s": m.ttft(), "tpot_s": m.tpot(),
+            "iterations": s.iterations, "spec_steps": s.spec_steps,
+            "drafted": s.drafted_tokens, "accepted": s.accepted_tokens,
+            "rejected": s.rejected_drafts,
+            "accept_rate": s.accepted_tokens / s.drafted_tokens if s.drafted_tokens else None,
+            "accept_len_hist": {str(k): v for k, v in sorted(s.accept_len_hist.items())},
+            "spec_busy_s": s.spec_busy_time, "lane_busy_s": s.lane_busy_time,
+            "offloaded_decodes": s.offloaded_decodes, "device_decodes": s.device_decodes,
+            "verify_passes": rec["verify_passes"], "base_decode_passes": rec["base_decode_passes"],
+            "max_pseudo_rows": rec["max_pseudo_rows"],
+            "max_verify_bucket": rec["max_verify_bucket"],
+            "host_pseudo_row_passes": rec["host_pseudo_row_passes"],
+            "pages_in_use": rec["pages_in_use"], "kernel_launches": launched, "card": card,
+            **extra}
+
+
+def spec_phase_a(torch, cfg, card):
+    """(a) Device-resident qwen3-0.6b, bf16, pipelined, pools 512/512: spec
+    off, the n-gram drafter, a replay drafter (full accepts) and a wrong
+    drafter (no accepts) give bitwise equal tokens; no row leaves the card;
+    K1 = layers x (decode passes + verify passes), as many merges."""
+    trace = spec_trace(cfg.vocab_size)
+    prompts = [t.prompt for t in trace]
+    runs = {}
+    for name in ("off", "ngram", "replay", "wrong"):
+        drafter = None
+        if name in ("replay", "wrong"):
+            outs = [runs["off"][0][rid] for rid in sorted(runs["off"][0])]
+            drafter = (ReplayDrafter(prompts, outs) if name == "replay"
+                       else WrongDrafter(prompts, outs, cfg.vocab_size))
+        engine, m, launched, _, rec = spec_run(cfg, trace, device_pages=512, host_pages=512,
+                                               spec=name != "off", drafter=drafter,
+                                               label=f"(a) {name}")
+        s = engine.stats
+        where = {loc for locs in rec["residency"].values() for loc in locs}
+        if where != {"gpu"} or s.offloaded_decodes or engine.pool.swap_bytes:
+            raise AssertionError(f"spec phase (a) {name}: a row left the card ({where}, "
+                                 f"offloaded {s.offloaded_decodes}, swap bytes "
+                                 f"{engine.pool.swap_bytes})")
+        runs[name] = (spec_tokens(engine), spec_summary(engine, m, launched, rec, card), rec)
+        del engine
+        free_card(torch)
+    off_tokens, off_used = runs["off"][0], runs["off"][2]["pages_in_use"]
+    for name, (tokens, summary, rec) in runs.items():
+        same = sum(a == b for rid, t in tokens.items() for a, b in zip(t, off_tokens[rid]))
+        total = sum(map(len, off_tokens.values()))
+        summary.update(run=f"a: {name}", tokens_equal_to_spec_off=same, tokens=total)
+        log(json.dumps({"spec": summary}))
+        if tokens != off_tokens:
+            raise AssertionError(f"spec phase (a) {name}: {same} of {total} bf16 tokens equal "
+                                 "spec off's")
+        if rec["pages_in_use"] != off_used:
+            raise AssertionError(f"spec phase (a) {name}: pages in use {rec['pages_in_use']} "
+                                 f"!= spec off's {off_used}")
+        if name == "off":
+            continue
+        if not (summary["spec_steps"] > 0 and summary["drafted"] > 0):
+            raise AssertionError(f"spec phase (a) {name}: nothing drafted ({summary})")
+        if name == "ngram" and summary["accepted"] <= 0:
+            raise AssertionError("spec phase (a) ngram: no draft accepted")
+        if name == "replay" and summary["accepted"] != summary["drafted"]:
+            raise AssertionError(f"spec phase (a) replay: {summary['accepted']} of "
+                                 f"{summary['drafted']} drafts accepted")
+        if name == "wrong" and summary["accepted"] != 0:
+            raise AssertionError(f"spec phase (a) wrong: {summary['accepted']} accepted")
+    return {name: run[1] for name, run in runs.items()}
+
+
+def spec_phase_b(torch, cfg, card):
+    """(b) The same prompts with pools 64/512, so neo offloads and verify
+    passes carry host pseudo-rows: fp32 spec on, every token the dense
+    oracle's argmax or a near-tie, and equal to fp32 spec off; bf16 spec on
+    against spec off counted, each differing request printed with its
+    residency (recorded, not asserted)."""
+    trace = spec_trace(cfg.vocab_size)
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    out = {}
+    for dt, c in (("float32", cfg32), ("bfloat16", cfg)):
+        runs = {}
+        for spec in (True, False):
+            engine, m, launched, _, rec = spec_run(c, trace, device_pages=64, host_pages=512,
+                                                   spec=spec, label=f"(b) {dt} spec={spec}",
+                                                   all_merge=False)
+            summary = spec_summary(engine, m, launched, rec, card, run=f"b: {dt}, spec "
+                                   + ("on" if spec else "off"), pools_pages=[64, 512])
+            tokens = spec_tokens(engine)
+            if spec and dt == "float32":
+                summary["parity"] = dense_oracle_parity(
+                    torch, engine.model, [(rid, engine.requests[rid].prompt, toks)
+                                          for rid, toks in sorted(tokens.items())])
+            runs[spec] = (None, tokens, summary, rec)
+            del engine
+            free_card(torch)
+        on, off = runs[True], runs[False]
+        if on[3]["host_pseudo_row_passes"] <= 0 or on[2]["offloaded_decodes"] <= 0:
+            raise AssertionError(f"spec phase (b) {dt}: no verify pass carried a host "
+                                 f"pseudo-row ({on[2]})")
+        same = sum(a == b for rid, t in on[1].items() for a, b in zip(t, off[1][rid]))
+        total = sum(map(len, off[1].values()))
+        differs = {}
+        for rid, toks in on[1].items():
+            if toks != off[1][rid]:
+                first = next((i for i, (a, b) in enumerate(zip(toks, off[1][rid])) if a != b),
+                             min(len(toks), len(off[1][rid])))
+                differs[rid] = {"first_diff": first,
+                                "residency_on": on[3]["residency"][rid],
+                                "residency_off": off[3]["residency"][rid]}
+        on[2].update(tokens_equal_to_spec_off=same, tokens=total, differing_requests=differs)
+        log(json.dumps({"spec": off[2]}))
+        log(json.dumps({"spec": on[2]}))
+        log(f"[spec] (b) {dt} spec on vs off: {same} of {total} tokens equal; "
+            f"{len(differs)} requests differ"
+            + "".join(f"; rid {rid} from token {d['first_diff']}, residency on "
+                      f"{''.join('h' if x == 'cpu' else 'd' for x in d['residency_on'])} off "
+                      f"{''.join('h' if x == 'cpu' else 'd' for x in d['residency_off'])}"
+                      for rid, d in sorted(differs.items())))
+        if dt == "float32" and (same != total or on[3]["pages_in_use"] != off[3]["pages_in_use"]):
+            raise AssertionError(f"spec phase (b) fp32: {same} of {total} tokens equal spec "
+                                 f"off's; pages {on[3]['pages_in_use']} vs "
+                                 f"{off[3]['pages_in_use']}")
+        out[dt] = on[2]
+    return out
+
+
+SPEC_TARGET, SPEC_DRAFT = "qwen3-14b", "qwen3-0.6b"
+SPEC_C_REQUESTS, SPEC_C_OUTPUT = 4, 16
+
+
+def spec_phase_c(torch, card):
+    """(c) The draft-model path, ``serve --arch qwen3-14b --draft-model
+    qwen3-0.6b --spec-decode``, both at full width (bf16, weights from
+    seeded CUDA generators), pools that keep the rows on the card: tokens
+    equal spec off's bitwise, drafts proposed, K2 = 28 x draft prefills +
+    40 x target prefill calls; the accept rate (random weights) is printed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import draft_model_drafter
+    from repro_torch.serving.traces import TraceRequest
+
+    cfg = get_config(SPEC_TARGET)
+    rng = np.random.default_rng(6)
+    trace = []
+    for _ in range(SPEC_C_REQUESTS):
+        n = int(rng.integers(256, 513))
+        trace.append(TraceRequest(0.0, n, SPEC_C_OUTPUT,
+                                  prompt=list(map(int, rng.integers(1, cfg.vocab_size, n)))))
+    runs = {}
+    for spec in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        drafter = (draft_model_drafter(cfg, SPEC_DRAFT, smoke=False, seed=0, device="cuda")
+                   if spec else None)
+        engine, m, launched, calls, rec = spec_run(cfg, trace, device_pages=256, host_pages=64,
+                                                   spec=spec, drafter=drafter,
+                                                   label=f"(c) spec={spec}")
+        prefills = drafter.prefills if drafter is not None else 0
+        summary = spec_summary(engine, m, launched, rec, card,
+                               run=f"c: {SPEC_TARGET}" + (f" + draft {SPEC_DRAFT}" if spec
+                                                          else ", spec off"),
+                               draft_prefills=prefills,
+                               target_prefill_calls=calls["prefill_with_cold_row"],
+                               peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9)
+        runs[spec] = (spec_tokens(engine), summary)
+        del engine, drafter
+        free_card(torch)
+    on, off = runs[True], runs[False]
+    same = sum(a == b for rid, t in on[0].items() for a, b in zip(t, off[0][rid]))
+    total = sum(map(len, off[0].values()))
+    on[1].update(tokens_equal_to_spec_off=same, tokens=total)
+    log(json.dumps({"spec": off[1]}))
+    log(json.dumps({"spec": on[1]}))
+    if on[0] != off[0]:
+        raise AssertionError(f"spec phase (c): {same} of {total} bf16 tokens equal spec off's")
+    if on[1]["drafted"] <= 0:
+        raise AssertionError("spec phase (c): the draft model proposed nothing")
+    return on[1], off[1]
+
+
+def spec_phase(torch, card):
+    """Phase 3d: (a), (b) on full-width qwen3-0.6b, then (c)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-0.6b")
+    t0 = time.perf_counter()
+    a = spec_phase_a(torch, cfg, card)
+    b = spec_phase_b(torch, cfg, card)
+    c_on, c_off = spec_phase_c(torch, card)
+    log(f"[spec] (a) bf16 device-resident: off / ngram / replay / wrong bitwise equal "
+        f"(asserted); ngram accept rate {a['ngram']['accept_rate']:.4f}, largest verify "
+        f"bucket {a['ngram']['max_verify_bucket']}; makespan off {a['off']['makespan_s']:.3f} s, "
+        f"ngram {a['ngram']['makespan_s']:.3f} s; (c) {SPEC_TARGET} + {SPEC_DRAFT}: tokens "
+        f"equal (asserted), accept rate {c_on['accept_rate']}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return a, b, c_on, c_off
+
+
+# ---------------------------------------------------------------------------
 # the contiguous paths: rwkv6-7b and zamba2-7b
 # ---------------------------------------------------------------------------
 
@@ -1410,6 +1820,11 @@ def main() -> int:
     flash_t, flash_worst = flash_kernel_phase(torch)
     rwkv6_t, _ = rwkv6_kernel_phase(torch)
     ssd_t, _ = mamba2_kernel_phase(torch)
+    spec_t, spec_decode_worst, spec_flash_worst = spec_kernel_phase(torch)
+    for dt_name, err in spec_flash_worst.items():
+        flash_worst[dt_name] = max(flash_worst[dt_name], err)
+    for dt_name, err in spec_decode_worst.items():
+        worst[dt_name] = max(worst[dt_name], err)
 
     # -- phase 3: serve each path --------------------------------------------
     cfg = get_config("qwen3-0.6b")
@@ -1447,6 +1862,7 @@ def main() -> int:
     log(json.dumps({"serve": online_phase(cfg, "cuda", card)}))
     torch.cuda.empty_cache()
     prefix_a, prefix_b, _ = prefix_phase(torch, cfg, card)
+    spec_a, _, spec_c, _ = spec_phase(torch, card)
     ssm = {}
     for arch in ("rwkv6-7b", "zamba2-7b"):
         summary, ssm_trace, tokens, _, _ = ssm_serve_phase(torch, get_config(arch), "cuda")
@@ -1490,6 +1906,9 @@ def main() -> int:
         "merge_launches": pipe_launched["paged_decode_merge"],
         "launches_serial_path": launched["paged_decode"],
         "launches_prefix_path": prefix_b["kernel_launches"]["paged_decode"],
+        "launches_spec_path": spec_a["ngram"]["kernel_launches"]["paged_decode"],
+        "merge_launches_spec_path": spec_a["ngram"]["kernel_launches"]["paged_decode_merge"],
+        "launches_spec_path_draft_model": spec_c["kernel_launches"]["paged_decode"],
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -1502,6 +1921,7 @@ def main() -> int:
         "pages_per_split": PAGES_PER_SPLIT,
         "pages_per_split_ms": main_t["pages_per_split_ms"],
         "long": timed["long"],
+        "qwen3_14b": spec_t["decode_qwen3_14b"],
     }, {
         "name": "flash_prefill",
         "route": "cuda",
@@ -1512,6 +1932,8 @@ def main() -> int:
         "launches_prefix_path": prefix_b["kernel_launches"]["flash_prefill"],
         "launches_prefix_path_cache_off": prefix_a["kernel_launches"]["flash_prefill"],
         "launches_zamba2": ssm["zamba2-7b"][0]["kernel_launches"]["flash_prefill"],
+        "launches_spec_path": spec_c["kernel_launches"]["flash_prefill"],
+        "launches_spec_path_draft_prefills": spec_c["draft_prefills"],
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,
         "ms": q_t["ms"],
@@ -1524,7 +1946,9 @@ def main() -> int:
         "fp32_kernel_ms": flash_t["qwen3_fp32"]["ms"],
         "fp32_plain_ms": flash_t["qwen3_fp32"]["plain_ms"],
         "fp32_bound_ms": flash_t["qwen3_fp32"]["bound_ms"],
-        "other_shapes": {k: v for k, v in flash_t.items() if k != "qwen3"},
+        "other_shapes": {**{k: v for k, v in flash_t.items() if k != "qwen3"},
+                         "qwen3_14b": spec_t["prefill_qwen3_14b"],
+                         "draft_window": spec_t["prefill_draft_window"]},
     }, scan_entry("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",
                   ssm["rwkv6-7b"][0]["kernel_launches"], rwkv6_t,

@@ -52,8 +52,17 @@ the match shrank past the token or page budget), and a finished request's
 pages go into the tree, which reclaims room by demoting device pages to the
 host before dropping any.  With the cache on, decode rows grow their pages
 before the prefills take theirs; with it off, after, as in the reference.
-Tensor parallelism (ROADMAP P13) and speculative decoding (P10) are not
-ported: building the engine with either switched on raises
+
+Speculative decoding (``EngineConfig.spec_decode``, :mod:`repro_torch.core.spec`)
+is the reference's: after a decode step's base emission, each drafting row
+expands into pseudo-rows at successive KV positions over its own pages, and
+ONE extra batched pass of the unchanged decode path verifies every draft
+position at once (:meth:`NeoEngine._run_spec_chain`); the accept walk
+emits only what serial greedy decode would have, and rollback frees only
+pages the chain grew.  Verify wall time goes to
+``EngineStats.spec_busy_time`` and the unaudited ``spec`` span track, never
+to the lane busy times ``reconcile()`` audits.  Tensor parallelism (ROADMAP
+P13) is not ported: building the engine with ``tp > 1`` raises
 ``NotImplementedError``.
 
 Fault tolerance: every accepted request is journaled (prompt + sampling
@@ -81,6 +90,7 @@ from repro_torch.core.perfmodel import PerfModel
 from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.core.request import Request, RequestState
 from repro_torch.core.scheduler import BatchPlan, NeoScheduler, PoolView, SchedQueues
+from repro_torch.core.spec import NgramDrafter
 from repro_torch.core.transfer import WAIT_TIMEOUT_S, TransferEngine
 from repro_torch.device import new_stream, on_stream, resolve_device
 from repro_torch.models.api import get_model
@@ -91,8 +101,7 @@ PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 @dataclass
 class EngineStats:
-    """The reference's ``EngineStats`` (without the speculation counters,
-    ROADMAP P10)."""
+    """The reference's ``EngineStats``."""
 
     iterations: int = 0
     tokens_out: int = 0
@@ -139,6 +148,17 @@ class EngineStats:
     planahead_hidden_time: float = 0.0
     # open-loop admission control: arrivals bounced by offer()
     rejected_requests: int = 0
+    # -- speculative decoding ----------------------------------------------
+    # steps that ran a verify pass; drafted/accepted/rejected token counts
+    # (rejected_drafts == drafted_tokens - accepted_tokens); verify wall time
+    # (kept OUT of device/lane busy time, so reconcile()'s audit is
+    # untouched); histogram: accepted chain length -> drafting-row count
+    spec_steps: int = 0
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
+    rejected_drafts: int = 0
+    spec_busy_time: float = 0.0
+    accept_len_hist: Dict[int, int] = field(default_factory=dict)
     plans: List[str] = field(default_factory=list)
 
     def record_plan(self, plan: BatchPlan) -> None:
@@ -167,11 +187,23 @@ class EngineStats:
         return self.host_busy_time / self.device_busy_time
 
 
+class _SpecRow:
+    """A decode-row view for batched draft verification: one token fed at an
+    advanced KV position over the REAL row's page table (the same list: the
+    verify pass writes its K/V into the row's own pages).  Carries exactly
+    the fields :meth:`PagedExecutor.decode` reads."""
+
+    __slots__ = ("all_tokens", "kv_len", "pages")
+
+    def __init__(self, token: int, kv_len: int, pages: List[int]):
+        self.all_tokens = (token,)
+        self.kv_len = kv_len
+        self.pages = pages
+
+
 def _unsupported(engine_cfg: EngineConfig) -> Optional[str]:
     if engine_cfg.tp > 1:
         return "tensor-parallel serving is not ported yet (ROADMAP P13)"
-    if engine_cfg.spec_decode:
-        return "speculative decoding is not ported yet (ROADMAP P10)"
     return None
 
 
@@ -245,6 +277,11 @@ class NeoEngine:
                 PrefixCache(self.pool, self.transfer,
                             token_granular=engine_cfg.prefix_token_granular)
                 if engine_cfg.prefix_cache else None)
+            # the speculative-decoding drafter: a pure token-level oracle
+            # (the serve CLI swaps in a DraftModelDrafter, tests inject
+            # stubs); every KV/page decision stays in _run_spec_chain
+            self.drafter = (NgramDrafter(engine_cfg.spec_ngram)
+                            if engine_cfg.spec_decode else None)
         else:
             self.executor = ContiguousExecutor(
                 self.model, slots=min(engine_cfg.max_requests, 64),
@@ -253,6 +290,7 @@ class NeoEngine:
             self.pool = None
             self.host_attn = None
             self.prefix_cache = None
+            self.drafter = None  # speculation is a paged-engine feature
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # weights and pools are in place
         self._rng = np.random.default_rng(engine_cfg.seed)
@@ -673,6 +711,7 @@ class NeoEngine:
         host_busy0 = self.host_attn.busy_time if self.paged else 0.0
         prefix_busy0 = self.host_attn.prefix_busy_time if self.paged else 0.0
         dev_busy0 = self.stats.device_busy_time
+        spec_busy0 = self.stats.spec_busy_time
         swap_busy0 = self.transfer.stats.busy_time if self.transfer else 0.0
 
         # -- PLAN: adopt the plan speculated during the previous iteration
@@ -721,6 +760,7 @@ class NeoEngine:
                 device_busy=self.stats.device_busy_time - dev_busy0,
                 swap_busy=ts.busy_time - swap_busy0,
                 host_prefix_busy=self.host_attn.prefix_busy_time - prefix_busy0,
+                spec_busy=self.stats.spec_busy_time - spec_busy0,
                 pipelined=self.engine_cfg.pipeline and plan.mode != "serial",
             )
         if self.tracer is not None:
@@ -950,6 +990,13 @@ class NeoEngine:
             for i, r in enumerate(rows):
                 self._emit(r, row_logits[i], now, emitted)
 
+            # speculative draft -> verify -> accept: AFTER the base emission
+            # (the verify pass's first pseudo-row scores the token just
+            # emitted) and BEFORE the drain, so rolled-back pages return to
+            # the pool within this step
+            if plan.spec_k > 0 and self.drafter is not None:
+                self._run_spec_chain(plan, rows, now, emitted)
+
         # ==== JOIN: barrier on every transfer no dispatch consumed (e.g.
         # gpu_only swap-outs whose victims do not decode this iteration), so
         # every step ends with the pools consistent
@@ -968,6 +1015,129 @@ class NeoEngine:
                     tr.emit("engine", "dispatch", dispatch_t0, win_end, {"iter": it})
                 for h in out_handles + in_handles:
                     self.stats.swap_hidden_bytes += h.hidden_bytes(dispatch_t0, win_end)
+
+    # -- speculative decoding (draft -> verify -> accept) ---------------------
+    def _run_spec_chain(self, plan: BatchPlan, rows: List[Request], now: float,
+                        emitted: List[Tuple[int, int]]) -> None:
+        """Batched draft verification over this step's decode rows in ONE
+        extra pass of the unchanged decode path (the reference's).
+
+        Each drafting row expands into ``len(drafts) + 1`` pseudo-rows
+        (:class:`_SpecRow`) at successive KV positions over its own page
+        table: pseudo-row 0 feeds the token the step just emitted (its
+        logits are the next serial token, a free bonus even for a row that
+        drafted nothing), pseudo-row ``j >= 1`` feeds draft ``D_{j-1}`` at
+        position ``kv_len + j``.  One :meth:`PagedExecutor.decode` call
+        verifies every position: within each layer it writes all rows' new
+        K/V before any row attends (device rows: the pool scatter precedes
+        the paged decode kernel; host rows: ``HostAttention.run_layer``
+        appends before attending), so pseudo-row ``j`` attends over the
+        fresh K/V of pseudo-rows ``< j`` as serial decode would.  Its logits
+        are the serial ones at that position when every shallower feed
+        matched the serial token, which is exactly the accept condition
+        walked below: every emitted token is the one non-speculative greedy
+        decode gives.  On the card this also rests on a row's logits not
+        depending on its pass's row count (the executor's row buckets, K1's
+        per-row page ranges; measured by ``tests/test_torch_spec_card.py``).
+
+        Rollback: ``out_tokens`` grows only through :meth:`_emit` in the
+        accept walk, so a rejection leaves the row at its serial state; the
+        rejected tail's K/V sits at positions ``>= kv_len``, unread and
+        overwritten by the next serial feed.  Pages are rolled back only
+        past the count the row held before the chain, so a page shared with
+        the prefix cache is never freed here.  Pool exhaustion during the
+        up-front growth caps a row's depth to the positions its pages cover
+        (a row whose base position cannot be covered skips the chain).
+
+        Verify wall time accrues to ``spec_busy_time`` and the ``spec`` span
+        track only; the device and lane busy times are untouched.
+        """
+        if self.engine_cfg.decode_sample != "greedy":
+            return
+        page = self._page
+        cand = [r for r in rows if r.state == RequestState.RUNNING and not r.is_done()]
+        if not cand:
+            return
+        cand_drafts: Dict[int, List[int]] = {}
+        for r in cand:
+            cap = min(plan.spec_k, r.max_new_tokens - len(r.out_tokens) - 1)
+            cand_drafts[r.rid] = (list(self.drafter.propose(r.all_tokens, cap)[:cap])
+                                  if cap > 0 else [])
+        if not any(cand_drafts.values()):
+            return  # nothing drafted anywhere: no verify pass
+        # up-front page growth: a depth-d row writes K/V at kv_len .. kv_len
+        # + d, so it needs (kv_len + d) // page + 1 pages; exhaustion caps
+        # the depth, surplus pages roll back in the accept walk
+        erows: List[Request] = []
+        drafts: List[List[int]] = []
+        base_pages: List[int] = []
+        for r in cand:
+            d = cand_drafts[r.rid]
+            pool = self.pool.pool(r.location)
+            pre = len(r.pages)
+            need = (r.kv_len + len(d)) // page + 1
+            while len(r.pages) < need:
+                if self.prefix_cache is not None:
+                    self.prefix_cache.make_room(r.location, 1)
+                if pool.free_pages < 1:
+                    break
+                r.pages = r.pages + pool.alloc(1)
+            max_depth = len(r.pages) * page - 1 - r.kv_len
+            if max_depth < 0:
+                continue  # base write position uncovered: plain decode only
+            erows.append(r)
+            drafts.append(d[:max_depth])
+            base_pages.append(pre)
+        if not erows:
+            return
+        tr = self.tracer
+        t0 = time.perf_counter()
+        prows: List[_SpecRow] = []
+        pflags: List[bool] = []
+        starts: List[int] = []
+        for i, r in enumerate(erows):
+            starts.append(len(prows))
+            for j, tok in enumerate([r.all_tokens[-1]] + drafts[i]):
+                prows.append(_SpecRow(tok, r.kv_len + j, r.pages))
+                pflags.append(r.location == "cpu")
+        logits = self.executor.decode(prows, pflags)
+        # ---- accept walk: emit serially from the verified logits ---------
+        drafted = sum(len(d) for d in drafts)
+        accepted_total = 0
+        for i, r in enumerate(erows):
+            d = drafts[i]
+            acc = 0
+            for j in range(len(d) + 1):
+                if r.is_done():
+                    break
+                self._emit(r, logits[starts[i] + j], now, emitted)
+                if j < len(d):
+                    if r.out_tokens[-1] == d[j]:
+                        acc += 1
+                    else:
+                        break  # the emitted token IS the serial correction
+            accepted_total += acc
+            if d:
+                self.stats.accept_len_hist[acc] = self.stats.accept_len_hist.get(acc, 0) + 1
+            # roll back pages grown past the final K/V coverage, never below
+            # the pre-chain count (shared prefix pages live there)
+            need = max(base_pages[i], r.kv_len // page + 1)
+            if len(r.pages) > need:
+                extra = r.pages[need:]
+                r.pages = r.pages[:need]
+                self.pool.pool(r.location).free(extra)
+        t1 = time.perf_counter()
+        self.stats.spec_steps += 1
+        self.stats.drafted_tokens += drafted
+        self.stats.accepted_tokens += accepted_total
+        self.stats.rejected_drafts += drafted - accepted_total
+        self.stats.spec_busy_time += t1 - t0
+        self.perf.observe_accept(drafted, accepted_total)
+        if tr is not None:
+            tr.emit("spec", "verify", t0, t1,
+                    {"iter": self.stats.iterations, "k": plan.spec_k,
+                     "rows": len(erows), "pseudo_rows": len(prows),
+                     "drafted": drafted, "accepted": accepted_total})
 
     def _alloc_prefills(self, plan: BatchPlan) -> List[bool]:
         """Allocate each prefill's pages in its pool; returns whether each

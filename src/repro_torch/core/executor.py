@@ -41,7 +41,10 @@ count, so the serial pass, batch-0 and each host lane hand cuBLAS the same M
 whenever their row counts share a bucket, and cuBLAS's choice of algorithm
 (and summation order), which depends on M, cannot move a row's bf16 logits
 (ROADMAP ground rule 3; on the H100, at qwen3-0.6b's widths, no decode GEMM
-changed a row's output across buckets 8-64 either: PERF.md). Padded rows carry token 0 at position 0 with
+changed a row's output across buckets 8-64 either: PERF.md). Above 64 rows
+one does (``w_down`` drops its split-K at 128), so larger passes run their
+row-wise work in 64-row slices (:data:`ROW_SLICE`), each a bucket-64 pass:
+a row's logits are then the same in every bucket.  Padded rows carry token 0 at position 0 with
 ``lens = 0``; they never write to a pool, never reach
 :class:`HostAttention`, and are dropped at the logits. The reference's page
 buckets for jit and its tensor parallelism are not ported (ROADMAP P13).
@@ -80,6 +83,28 @@ def _bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+# The largest row count at which every GEMM of the decode step gives a row
+# bitwise what it gives at 8 rows on the H100 (bf16, qwen3-0.6b's widths:
+# PERF.md).  At 128 rows and more cuBLAS runs w_down (K = 3072) without the
+# split-K it uses at 8-64 rows, which moves the row's bf16 output, so passes
+# of more than ROW_SLICE rows (speculative verify passes: K + 1 pseudo-rows
+# per row) run their row-wise work in slices of ROW_SLICE rows.  Every
+# bucket above it is a multiple of it, so each slice is a bucket-64 pass.
+ROW_SLICE = 64
+
+
+def _in_row_slices(fn, *tensors):
+    """``fn`` over ``tensors`` (rows first), in slices of at most
+    ``ROW_SLICE`` rows, the results concatenated along the rows."""
+    D = tensors[0].shape[0]
+    if D <= ROW_SLICE:
+        return fn(*tensors)
+    parts = [fn(*(t[i:i + ROW_SLICE] for t in tensors)) for i in range(0, D, ROW_SLICE)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
 
 
 class PagedExecutor:
@@ -148,7 +173,17 @@ class PagedExecutor:
         dev_idx = np.flatnonzero(~is_host)
         host_idx = np.flatnonzero(is_host)
 
-        # device rows: block tables over their pages, attend over pos + 1
+        # device rows: block tables over their pages, attend over pos + 1.
+        # The speculative verify pass (NeoEngine._run_spec_chain) hands in
+        # pseudo-rows of one request that share its page list at successive
+        # positions: every device row's K/V is written below before K1 runs
+        # (and HostAttention.run_layer appends every host row before any
+        # attends), so pseudo-row j reads the K/V of pseudo-rows < j of this
+        # very call, and nothing past its own position (lens = pos + 1).  The
+        # table width mp is not bucketed, unlike the reference's (it pads
+        # its jit shapes): K1 reads only a row's first ceil(lens / page)
+        # entries and splits them into ranges by the row's own length
+        # (paged_decode.ops.split_pages), so the width moves no result.
         mp = max([len(rows[i].pages) for i in dev_idx] + [1])
         tables = np.zeros((D, mp), np.int32)
         lens = np.zeros((D,), np.int32)  # 0 for host and pad rows: the kernel gives zeros
@@ -169,7 +204,7 @@ class PagedExecutor:
         x = model.embed_tokens(torch.from_numpy(tokens).to(dev))
         pos_t = torch.from_numpy(positions).to(dev)
         for li, blk in enumerate(model.layers):
-            q, k, v = self._layer_pre(blk, x, pos_t)
+            q, k, v = _in_row_slices(functools.partial(self._layer_pre, blk), x, pos_t)
             if len(dev_idx):
                 pk[li, dev_pid_t, dev_off_t] = k[dev_idx_t].to(pk.dtype)
                 pv[li, dev_pid_t, dev_off_t] = v[dev_idx_t].to(pv.dtype)
@@ -179,8 +214,8 @@ class PagedExecutor:
                 o[host_idx_t] = self._host_attention(
                     li, q[host_idx_t], k[host_idx_t], v[host_idx_t], h_meta, o.dtype,
                     "hostattn-b0")
-            x = self._layer_post(blk, x, o)
-        return model.final_logits(x)[:n].cpu().numpy()
+            x = _in_row_slices(functools.partial(self._layer_post, blk), x, o)
+        return _in_row_slices(model.final_logits, x)[:n].cpu().numpy()
 
     def _host_attention(self, li: int, q, k, v, meta, dtype, track: str) -> torch.Tensor:
         """TrQKV (one copy) -> CPU attention over the host pool -> TrO for
@@ -243,12 +278,12 @@ class PagedExecutor:
             x = model.embed_tokens(torch.from_numpy(tokens).to(dev))
             pos_t = torch.from_numpy(positions).to(dev)
             for li, blk in enumerate(model.layers):
-                q, k, v = self._layer_pre(blk, x, pos_t)
+                q, k, v = _in_row_slices(functools.partial(self._layer_pre, blk), x, pos_t)
                 o = torch.zeros_like(q)
                 o[:n] = self._host_attention(li, q[:n], k[:n], v[:n], meta, q.dtype,
                                              f"hostattn-lane{lane}")
-                x = self._layer_post(blk, x, o)
-            return model.final_logits(x)[:n].cpu().numpy()
+                x = _in_row_slices(functools.partial(self._layer_post, blk), x, o)
+            return _in_row_slices(model.final_logits, x)[:n].cpu().numpy()
 
     def submit_host_lane(self, rows: List[Request], *,
                          pre: Optional[Callable[[], None]] = None,

@@ -47,8 +47,20 @@ host-resident prefix was served in place with next to no PCIe bytes:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --trace multiturn --prefix-cache --require-hits --host-serving
 
-Tensor parallelism and speculative decoding (``--spec-k`` included) raise
-``NotImplementedError`` naming their ROADMAP item.
+``--spec-decode`` switches speculative decoding on (the n-gram drafter,
+up to ``--spec-k`` drafts per row and step); ``--draft-model <arch>``
+drafts with that model instead (random weights seeded ``--seed + 1``, on
+the target's device and dtype; its vocabulary must be the target's);
+``--require-accepts`` exits 1 when no drafted token was accepted:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke \
+      --device cpu --trace osc --n 12 --rate 2 --policy fastdecode \
+      --spec-decode --spec-k 4 --require-accepts
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --n 4 \
+      --device-pages 256 --draft-model qwen3-0.6b --spec-decode
+
+Tensor parallelism (``--tp``) raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,11 +72,14 @@ import time
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.config import EngineConfig
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core.engine import NeoEngine
 from repro_torch.core.request import RequestState
+from repro_torch.core.spec import DraftModelDrafter
+from repro_torch.models.api import get_model
 from repro_torch.obs.reconcile import reconcile
 from repro_torch.serving.metrics import RequestRecord, ServeMetrics
 from repro_torch.serving.traces import get_trace, save_trace
@@ -97,6 +112,12 @@ def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
     metrics.plan_busy_time = s.plan_busy_time
     metrics.planahead_hidden_time = s.planahead_hidden_time
     metrics.rejected_requests = s.rejected_requests
+    metrics.spec_steps = s.spec_steps
+    metrics.drafted_tokens = s.drafted_tokens
+    metrics.accepted_tokens = s.accepted_tokens
+    metrics.rejected_drafts = s.rejected_drafts
+    metrics.spec_busy_time = s.spec_busy_time
+    metrics.accept_len_hist = dict(s.accept_len_hist)
     if getattr(engine, "prefix_cache", None) is not None:
         ps = engine.prefix_cache.stats
         metrics.prefix_hit_rate = ps.hit_rate
@@ -358,10 +379,25 @@ def _unported_flags(args) -> str:
     """The first flag asking for something the port does not run yet."""
     if args.tp != 1:
         return "tensor-parallel serving is not ported yet (ROADMAP P13)"
-    if (args.spec_decode or args.draft_model or args.require_accepts
-            or args.spec_k != EngineConfig.spec_k):
-        return "speculative decoding is not ported yet (ROADMAP P10)"
     return ""
+
+
+def draft_model_drafter(target_cfg, draft_arch: str, *, smoke: bool, seed: int,
+                        device) -> DraftModelDrafter:
+    """The ``--draft-model`` drafter: ``draft_arch``'s model (its smoke
+    config under ``smoke``) with random weights from a generator seeded
+    ``seed + 1``, as the reference seeds it, on ``device`` in the target's
+    dtype.  Raises ValueError, with the reference's message, when the
+    vocabularies differ (drafted ids are proposed verbatim)."""
+    dcfg = get_smoke_config(draft_arch) if smoke else get_config(draft_arch)
+    if dcfg.vocab_size != target_cfg.vocab_size:
+        raise ValueError(f"draft vocab {dcfg.vocab_size} != target vocab "
+                         f"{target_cfg.vocab_size} (token ids are proposed verbatim)")
+    dcfg = dcfg.replace(param_dtype=target_cfg.param_dtype,
+                        activation_dtype=target_cfg.activation_dtype)
+    model = get_model(dcfg, device=device)
+    model.init(torch.Generator(device=model.device).manual_seed(seed + 1))
+    return DraftModelDrafter(model, vocab_size=target_cfg.vocab_size)
 
 
 def main(argv=None) -> int:
@@ -418,10 +454,17 @@ def main(argv=None) -> int:
                     help="exit 1 unless reconcile(), the audit of the spans against "
                          "EngineStats, passes (switches tracing on)")
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--spec-decode", action="store_true")
-    ap.add_argument("--spec-k", type=int, default=EngineConfig.spec_k)
-    ap.add_argument("--draft-model", default="")
-    ap.add_argument("--require-accepts", action="store_true")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decoding: n-gram drafter + one batched verify pass "
+                         "per step; greedy outputs stay those of non-speculative decode")
+    ap.add_argument("--spec-k", type=int, default=EngineConfig.spec_k,
+                    help="max drafted tokens per row per step; the perf model prices K "
+                         "in [1, spec_k] each plan")
+    ap.add_argument("--draft-model", default="",
+                    help="arch of a small draft model (e.g. qwen3-0.6b) to draft with "
+                         "instead of the n-gram drafter; implies --spec-decode")
+    ap.add_argument("--require-accepts", action="store_true",
+                    help="exit 1 if speculative decoding accepted 0 drafted tokens")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -458,14 +501,28 @@ def main(argv=None) -> int:
         max_waiting=args.max_waiting,
         prefix_cache=args.prefix_cache,
         tracing=tracing,
+        spec_decode=args.spec_decode or bool(args.draft_model),
+        spec_k=args.spec_k,
         seed=args.seed,
     )
     open_loop = args.arrivals != "closed"
     print(f"[serve] arch={cfg.name} policy={args.policy} device={args.device} "
           f"pipeline={not args.no_pipeline} microbatch={not args.no_microbatch} "
           f"prefix_cache={args.prefix_cache} planahead={not args.no_planahead} "
-          f"arrivals={args.arrivals} pools=({args.device_pages},{args.host_pages})")
+          f"arrivals={args.arrivals} spec={ecfg.spec_decode} "
+          f"pools=({args.device_pages},{args.host_pages})")
+    drafter = None
+    if args.draft_model:
+        try:
+            drafter = draft_model_drafter(cfg, args.draft_model, smoke=args.smoke,
+                                          seed=args.seed, device=args.device)
+        except ValueError as e:
+            print(f"[serve] FAIL: {e}")
+            return 1
+        print(f"[serve] draft model: {drafter.model.cfg.name} (window={drafter.window})")
     engine = NeoEngine(cfg, ecfg, device=args.device)
+    if drafter is not None:
+        engine.drafter = drafter
     if args.arrivals.startswith("replay:"):
         trace = get_trace(args.arrivals, args.n, args.rate, args.seed)
     else:
@@ -503,6 +560,15 @@ def main(argv=None) -> int:
     if args.require_hits and m.prefix_hit_rate <= 0.0:
         print("[serve] FAIL: prefix-cache hit rate is 0 on a shared-prefix trace")
         return 1
+    if ecfg.spec_decode:
+        s = engine.stats
+        print(f"[serve] spec: steps={s.spec_steps} drafted={s.drafted_tokens} "
+              f"accepted={s.accepted_tokens} rejected={s.rejected_drafts} "
+              f"hist={dict(sorted(s.accept_len_hist.items()))}")
+        if args.require_accepts and s.accepted_tokens == 0:
+            print("[serve] FAIL: speculative decoding accepted 0 drafted tokens under "
+                  "--require-accepts")
+            return 1
     if args.host_serving:
         return _host_serving_gate(engine, m)
     return 0

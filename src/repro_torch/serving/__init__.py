@@ -1,4 +1,5 @@
-"""Serving substrate: workload traces and latency/throughput metrics."""
+"""Serving substrate: workload traces, latency/throughput metrics and the
+discrete-event serving simulator."""
 
 from repro_torch.serving.traces import (  # noqa: F401
     TraceRequest,
@@ -8,3 +9,9 @@ from repro_torch.serving.traces import (  # noqa: F401
     synthetic_trace,
 )
 from repro_torch.serving.metrics import RequestRecord, ServeMetrics  # noqa: F401
+from repro_torch.serving.simulator import (  # noqa: F401
+    FakePool,
+    SimEngine,
+    simulate,
+    size_pools,
+)

@@ -31,6 +31,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for n in names:
     importlib.import_module(n)
 for n in ("repro_torch.core.transfer", "repro_torch.core.prefix_cache",
+          "repro_torch.core.spec", "repro_torch.serving.simulator",
           "repro_torch.kernels.flash_prefill.ops",
           "repro_torch.kernels.flash_prefill.ref", "repro_torch.obs",
           "repro_torch.obs.tracer", "repro_torch.obs.reconcile", "repro_torch.obs.validate"):
@@ -87,13 +88,38 @@ def test_entry_points_refuse_cpu_fallback(no_cuda):
         serve.main(["--smoke", "--n", "1", "--arrivals", "poisson"])
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(pipeline=False, tp=2), "P13"),
-    (dict(pipeline=False, spec_decode=True), "P10"),
+@pytest.mark.parametrize("arch,option,item", [
+    ("qwen3-0.6b", dict(pipeline=False, tp=2), "P13"),
+    ("deepseek-moe-16b", dict(pipeline=False), "P11"),
 ])
-def test_unported_engine_options_raise(option, item):
+def test_unported_engine_options_raise(arch, option, item):
+    """What the engine does not run yet raises, naming its ROADMAP item:
+    tensor parallelism, and the moe family (speculative decoding, refused
+    here until it was ported, builds: test_spec_decode_engine_builds_on_cpu)."""
     with pytest.raises(NotImplementedError, match=item):
-        NeoEngine(CFG, EngineConfig(**option), device="cpu")
+        NeoEngine(get_smoke_config(arch), EngineConfig(**option), device="cpu")
+
+
+def test_spec_decode_engine_builds_on_cpu():
+    """``spec_decode=True`` builds the paged engine with the n-gram drafter
+    of order ``spec_ngram`` and serves a repetitive prompt with verify
+    passes; the contiguous engine gets no drafter (the reference's rule)."""
+    from repro_torch.core.spec import NgramDrafter
+
+    eng = NeoEngine(CFG, EngineConfig(spec_decode=True, spec_ngram=2, device_pool_pages=16,
+                                      host_pool_pages=16, max_batch_tokens=64), device="cpu")
+    try:
+        assert isinstance(eng.drafter, NgramDrafter) and eng.drafter.n == 2
+        rid = eng.submit([5, 6, 7, 8] * 4, 6)
+        assert len(eng.run_until_done(50)[rid]) == 6
+        assert eng.stats.spec_steps > 0 and eng.stats.drafted_tokens > 0
+    finally:
+        eng.close()
+    ssm = NeoEngine(get_smoke_config("rwkv6-7b"),
+                    EngineConfig(spec_decode=True, pipeline=False, max_batch_tokens=64),
+                    device="cpu")
+    assert ssm.drafter is None and not ssm.paged
+    ssm.close()
 
 
 def test_prefix_cache_engine_builds_on_cpu():

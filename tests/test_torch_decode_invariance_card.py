@@ -269,14 +269,53 @@ def test_card_recomputed_kv_vs_decoded_kv_record(engine):
     print(json.dumps({"recompute_vs_decoded": record}))
 
 
+# The A/B's schedule is pinned: arrivals follow a virtual clock that
+# advances a fixed step per reading of the serve loop's clock (and by the
+# slept time), and the perf model is frozen (ewma_alpha=0), so the plans
+# follow from the inputs alone, the same on the card as in the CPU
+# rehearsal (tests/test_torch_serve.py::test_sustained_virtual_clock_schedule).
+# With ONE step for both loops they see every arrival at the same turn and
+# plan alike: no request's residency differs, and the record tests nothing.
+# The closed loop takes 0.05 s a reading (the step of
+# test_card_cli_prefix_cache_default_pools_virtual_clock) and the open loop,
+# whose plan-ahead takes planning off its critical path, 0.04 s: the
+# smallest of the paces tried (0.045, 0.04, 0.03) that moves requests'
+# residency early in their output, 5 of 16, from their 1st to 9th token.
+SUSTAINED_STEPS = {"closed": 0.05, "open": 0.04}
+
+
+class _VirtualClock:
+    """A ``time`` stand-in whose clock advances ``dt`` per reading (and by
+    the slept time); ``dt`` is set per loop."""
+
+    def __init__(self):
+        self.now, self.dt = 0.0, 0.0
+
+    def perf_counter(self):
+        self.now += self.dt
+        return self.now
+
+    time = perf_counter
+
+    def sleep(self, s):
+        self.now += s
+
+
+def _frozen_config(cls):
+    """An EngineConfig factory with the perf model frozen (``ewma_alpha=0``)."""
+    def make(**kw):
+        return cls(**{**kw, "ewma_alpha": 0.0, "hw_profile": "h100_sxm"})
+    return make
+
+
 def _sustained_loops(monkeypatch, host_bf16: bool) -> dict:
     """One ``--sustained`` A/B run (closed-loop lockstep, then open loop +
-    plan-ahead), each engine traced, with each request's moves (prefill into
-    a pool, swap-out, swap-in) logged at the iteration that launched them.
-    With ``host_bf16`` the host pool holds the device pool's bf16 values
-    exactly: numpy has no bfloat16, so the pool stores them in float32
-    (every value written is a bf16 activation or a bf16 device page).
-    Returns the record of the run."""
+    plan-ahead) on the pinned schedule (``SUSTAINED_STEPS``), each engine
+    traced, with each request's moves (prefill into a pool, swap-out,
+    swap-in) logged at the iteration that launched them.  With ``host_bf16``
+    the host pool holds the device pool's bf16 values exactly: numpy has no
+    bfloat16, so the pool stores them in float32 (every value written is a
+    bf16 activation or a bf16 device page).  Returns the record of the run."""
     from repro_torch.core.kv_cache import PagePool
     from repro_torch.launch import serve
     from repro_torch.obs import SpanTracer
@@ -284,9 +323,11 @@ def _sustained_loops(monkeypatch, host_bf16: bool) -> dict:
     engines = []
     init = NeoEngine.__init__
     init_pool = PagePool.__init__
+    clock = _VirtualClock()
 
     def counted_init(self, *a, **k):
         init(self, *a, **k)
+        clock.dt = SUSTAINED_STEPS["closed" if not engines else "open"]
         self.attach_tracer(SpanTracer(1 << 20))
         moves = collections.defaultdict(list)  # rid -> [(iter, move)]
         engines.append((self, moves))
@@ -317,6 +358,8 @@ def _sustained_loops(monkeypatch, host_bf16: bool) -> dict:
 
     with monkeypatch.context() as mp:
         mp.setattr(NeoEngine, "__init__", counted_init)
+        mp.setattr(serve, "time", clock)
+        mp.setattr(serve, "EngineConfig", _frozen_config(serve.EngineConfig))
         if host_bf16:
             mp.setattr(PagePool, "__init__", f32_host_pool)
         result = serve.run_sustained(arch="qwen3-0.6b", smoke=False, device="cuda", n=16,
@@ -371,6 +414,7 @@ def _sustained_loops(monkeypatch, host_bf16: bool) -> dict:
                        "residency_by_token": [loc for _, loc in res[name][rid]]}
                 for name in loops}}
     return {"host_pool": "bf16 values (float32 storage)" if host_bf16 else "float16",
+            "clock_steps": SUSTAINED_STEPS,
             "bitwise_identical": result["gates"]["bitwise_identical"],
             "requests": len(closed.requests), "diverged": diverged,
             "residency_differs_from_token": moved}
@@ -380,21 +424,22 @@ def _sustained_loops(monkeypatch, host_bf16: bool) -> dict:
 def test_card_sustained_divergence_record(monkeypatch):
     """The serve CLI's ``--sustained`` A/B (closed-loop lockstep vs open loop
     + plan-ahead, full-width qwen3-0.6b, 16 osc requests at 4 req/s, pools
-    64/256 pages), run twice: with the fp16 host pool (the reference's rule)
-    and again, inside this test only, with the host pool holding bf16
-    values.  Each engine is traced; each request's residency at each of its
-    tokens comes from the tracer's ``tok`` and ``step`` events and its
-    logged moves, held to the tracer's ``copy-*`` spans.  Recorded: which
-    requests' tokens differ, where they first differ, and where each loop
-    kept their K/V then.
+    64/256 pages) on a pinned schedule (virtual arrival clocks, perf model
+    frozen: ``SUSTAINED_STEPS``), run twice: with the fp16 host pool (the
+    reference's rule) and again, inside this test only, with the host pool
+    holding bf16 values.  Both runs have the same schedule, in which 5
+    requests' residency differs between the loops.  Each engine is traced;
+    each request's residency at each of its tokens comes from the tracer's
+    ``tok`` and ``step`` events and its logged moves, held to the tracer's
+    ``copy-*`` spans.  Recorded: which requests' tokens differ, where they
+    first differ, and where each loop kept their K/V then.
 
-    Asserted, as the H100 shows: a request's tokens differ between the
-    loops only after its residency differed; with the host pool holding
-    bf16 values the loops are bitwise identical although the plans still
-    kept some requests in other pools, so the fp16 host pool's rounding is
-    what moves the tokens (host attention in numpy gives the paged decode
-    kernel's bf16 outputs).  Whether the fp16 run diverges depends on which
-    requests the clock-driven plans move, so it is recorded, not asserted."""
+    Asserted: a request's tokens differ between the loops only after its
+    residency differed; with the host pool holding bf16 values the loops are
+    bitwise identical although the plans kept some requests in other pools,
+    so the fp16 host pool's rounding is what moves the tokens (host
+    attention in numpy gives the paged decode kernel's bf16 outputs).
+    Whether the fp16 run diverges is recorded, not asserted."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     records = [_sustained_loops(monkeypatch, host_bf16) for host_bf16 in (False, True)]

@@ -90,9 +90,12 @@ def build(weights):
         eng.close()
 
 
-def _prompts(seed, sizes):
+def _prompts(seed, sizes, repeat=0):
+    """Seeded prompts; with ``repeat`` each opens with one 8-token base
+    repeated that many times (repetition the n-gram drafter can use)."""
     rng = np.random.default_rng(seed)
-    return [list(map(int, rng.integers(1, 500, size=n))) for n in sizes]
+    base = list(map(int, rng.integers(1, 500, size=8))) * repeat if repeat else []
+    return [base + list(map(int, rng.integers(1, 500, size=n))) for n in sizes]
 
 
 def _run(eng, prompts, n=8, max_iters=400):
@@ -116,6 +119,10 @@ RUNS = {
     "fastdecode": dict(kw=dict(policy="fastdecode", device=48, host=256,
                                max_batch_tokens=256), sizes=(7, 19, 26, 12)),
     "neo-planahead": dict(kw=dict(policy="neo", planahead=True), sizes=(7, 19, 26, 12)),
+    # speculative decoding: verify passes on the unaudited "spec" track,
+    # host pseudo-rows on the tight pool
+    "neo-spec": dict(kw=dict(policy="neo", planahead=True, spec_decode=True),
+                     sizes=(7, 19, 26, 12), repeat=3),
     "rwkv6-contiguous": dict(kw=dict(arch="rwkv6-7b", pipeline=False, max_batch_tokens=128),
                              sizes=(9, 14, 21)),
 }
@@ -229,7 +236,7 @@ def test_export_nested_spans_end_on_one_float(tmp_path):
 @pytest.mark.parametrize("run", list(RUNS))
 def test_tracing_bitwise_identity(run, build):
     kw = dict(RUNS[run]["kw"])
-    prompts = _prompts(40, RUNS[run]["sizes"])
+    prompts = _prompts(40, RUNS[run]["sizes"], RUNS[run].get("repeat", 0))
     outs = {}
     for tracing in (False, True):
         eng = build(tracing=tracing, **kw)
@@ -375,7 +382,8 @@ def _shape(events, skip_tracks=()):
     return dict(out)
 
 
-@pytest.mark.parametrize("run", ["neo-planahead", "fastdecode", "rwkv6-contiguous"])
+@pytest.mark.parametrize("run", ["neo-planahead", "fastdecode", "rwkv6-contiguous",
+                                 "neo-spec"])
 def test_trace_matches_reference_up_to_time(run, build):
     """Every event the reference's engine, executor, scheduler and transfer
     engine emit, the port emits on the same track with the same name,
@@ -385,10 +393,15 @@ def test_trace_matches_reference_up_to_time(run, build):
     replans, follow from the inputs alone.  On the contiguous path the
     ``device`` track is left out: only the port records lane windows there."""
     kw = dict(RUNS[run]["kw"])
-    prompts = _prompts(47, RUNS[run]["sizes"])
+    prompts = _prompts(47, RUNS[run]["sizes"], RUNS[run].get("repeat", 0))
     engines = {side: build(side=side, **kw) for side in ("ref", "port")}
     outs = {side: _run(eng, prompts) for side, eng in engines.items()}
     assert outs["port"] == outs["ref"]
+    for eng in engines.values():
+        # the last step's plan-ahead may still be planning on its thread:
+        # let it emit its spans before the timelines are compared
+        if getattr(eng, "_spec", None) is not None:
+            eng._spec[3].result(timeout=600)
     skip = ("device",) if run == "rwkv6-contiguous" else ()
     ref_shape = _shape(engines["ref"].tracer.events(), skip)
     port_shape = _shape(engines["port"].tracer.events(), skip)
@@ -397,6 +410,8 @@ def test_trace_matches_reference_up_to_time(run, build):
         assert port_shape[track] == ref_shape[track], track
     if run == "rwkv6-contiguous":
         assert "device" in _shape(engines["port"].tracer.events())
+    if run == "neo-spec":
+        assert port_shape["spec"] and engines["port"].stats.spec_steps > 0
     assert engines["port"].tracer.dropped == engines["ref"].tracer.dropped == 0
 
 
@@ -459,14 +474,19 @@ def test_validate_flags_missing_expectations(tmp_path):
 @pytest.mark.parametrize("case,flags", [
     ("fastdecode-planahead", ["--expect-host-lane", "--min-adopts", "1"]),
     ("neo-tight-pool", ["--expect-copy"]),
+    ("neo-spec", ["--expect-copy"]),
 ])
 def test_validate_accepts_port_exports(case, flags, build, tmp_path, capsys):
     if case == "neo-tight-pool":
         eng = build(policy="neo")
+    elif case == "neo-spec":
+        eng = build(policy="neo", spec_decode=True)
     else:
         eng = build(policy="fastdecode", device=48, host=256, max_batch_tokens=256,
                     planahead=True)
-    _run(eng, _prompts(48, (7, 19, 26, 12)))
+    _run(eng, _prompts(48, (7, 19, 26, 12), repeat=3 if case == "neo-spec" else 0))
+    if case == "neo-spec":
+        assert any(e.track == "spec" and e.name == "verify" for e in eng.tracer.events())
     path = str(tmp_path / f"{case}.json")
     eng.tracer.export_chrome(path)
     assert port_validate.main([path, *flags]) == 0

@@ -232,9 +232,129 @@ def test_cli_prefix_cache_full_width_schedule_matches_reference(monkeypatch, cap
 
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], "P13"),
-    (["--spec-decode"], "P10"),
-    (["--spec-k", "2"], "P10"),
+    (["--tp", "2", "--spec-decode"], "P13"),
+    (["--arch", "deepseek-moe-16b"], "P11"),
 ])
 def test_cli_refuses_unported_options(flags, item):
+    """What the port does not serve yet raises, naming its ROADMAP item
+    (``--spec-decode`` and ``--spec-k``, refused here until speculative
+    decoding was ported, run: test_cli_spec_decode_*)."""
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *flags])
+
+
+SPEC_ARGS = ["--arch", ARCH, "--smoke", "--device", "cpu", "--trace", "osc", "--n", "12",
+             "--rate", "2", "--policy", "fastdecode"]
+
+
+def _summary(out):
+    return json.loads(out[out.index("{"): out.index("scheduler modes:")])
+
+
+def test_cli_spec_decode_require_accepts(capsys):
+    """``--spec-decode --spec-k 4 --require-accepts`` on the repetitive osc
+    trace exits 0 with accepted drafts; the summary mirrors the engine's
+    speculation counters and the ``spec:`` line prints them."""
+    assert serve.main(SPEC_ARGS + ["--spec-decode", "--spec-k", "4",
+                                   "--require-accepts"]) == 0
+    out = capsys.readouterr().out
+    s = _summary(out)
+    assert s["spec_steps"] > 0 and s["accepted_tokens"] > 0
+    assert s["rejected_drafts"] == s["drafted_tokens"] - s["accepted_tokens"]
+    assert sum(int(k) * v for k, v in s["accept_len_hist"].items()) == s["accepted_tokens"]
+    line = next(x for x in out.splitlines() if x.startswith("[serve] spec:"))
+    assert f"accepted={s['accepted_tokens']}" in line and "spec=True" in out
+
+
+def test_cli_spec_decode_require_accepts_fails_on_zero_accepts(monkeypatch, capsys):
+    """``--require-accepts`` exits 1 when nothing was accepted."""
+    class Never:
+        def __init__(self, n):
+            pass
+
+        def propose(self, tokens, k):
+            return [0] * k if tokens[-1] != 0 else [1] * k
+
+    monkeypatch.setattr(engine_mod, "NgramDrafter", Never)
+    assert serve.main(SPEC_ARGS + ["--n", "3", "--spec-decode", "--require-accepts"]) == 1
+    out = capsys.readouterr().out
+    assert "accepted 0 drafted tokens" in out and _summary(out)["drafted_tokens"] > 0
+
+
+def test_cli_draft_model(capsys):
+    """``--draft-model qwen3-0.6b`` (smoke, seeded ``--seed + 1``) implies
+    ``--spec-decode``: drafts come from the draft model, tokens are those
+    of speculation off."""
+    args = SPEC_ARGS + ["--n", "4", "--max-batch-tokens", "256"]
+    assert serve.main(args) == 0
+    off = _summary(capsys.readouterr().out)
+    assert serve.main(args + ["--draft-model", "qwen3-0.6b"]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] draft model: qwen3-0.6b-smoke (window=64)" in out and "spec=True" in out
+    on = _summary(out)
+    assert on["spec_steps"] > 0 and on["drafted_tokens"] > 0
+    assert on["terminal_counts"] == off["terminal_counts"]
+    assert on["throughput_tok_s"] > 0
+
+
+def test_cli_draft_model_vocab_mismatch_fails(capsys):
+    """A draft model whose vocabulary is not the target's (full configs:
+    yi-9b's 64,000 against qwen3-0.6b's 151,936) is refused with the
+    reference's message before any model is built (the smoke configs all
+    share one vocabulary)."""
+    assert serve.main(["--arch", ARCH, "--device", "cpu", "--draft-model", "yi-9b"]) == 1
+    out = capsys.readouterr().out
+    assert "[serve] FAIL: draft vocab 64000 != target vocab 151936 (token ids are proposed " \
+        "verbatim)" in out
+
+
+def test_sustained_virtual_clock_schedule(monkeypatch):
+    """The schedule ``tests/test_torch_decode_invariance_card.py::
+    test_card_sustained_divergence_record`` pins on the card: ``--sustained``
+    at full width (16 osc requests at 4 req/s, pools 64/256), planned as for
+    full-width qwen3-0.6b on smoke weights, perf model frozen, arrivals on
+    virtual clocks of 0.05 s a reading (closed loop) and 0.04 s (open loop).
+    The schedule does not depend on the tokens, so this derives the card's:
+    5 requests' residency differs between the loops, each from the token
+    given here; with one step for both loops none would differ."""
+    _plan_at_full_width(monkeypatch, serve, engine_mod, get_config(ARCH))
+    monkeypatch.setattr(serve, "EngineConfig", _FrozenConfig(serve.EngineConfig))
+    steps, where, made = {"closed": 0.05, "open": 0.04}, [], []
+    clock = types.SimpleNamespace(now=0.0, dt=0.0)
+
+    def perf_counter():
+        clock.now += clock.dt
+        return clock.now
+
+    def sleep(s):
+        clock.now += s
+
+    monkeypatch.setattr(serve, "time", types.SimpleNamespace(perf_counter=perf_counter,
+                                                              sleep=sleep, time=perf_counter))
+    init = NeoEngine.__init__
+
+    def traced_init(self, *a, **k):
+        init(self, *a, **k)
+        clock.dt = steps["closed" if not made else "open"]
+        made.append(self)
+        loc = {}
+        where.append(loc)
+        step = self._step
+
+        def located(now):
+            emitted = step(now)
+            for rid, _ in emitted:
+                loc.setdefault(rid, []).append(self.requests[rid].location)
+            return emitted
+
+        self._step = located
+
+    monkeypatch.setattr(NeoEngine, "__init__", traced_init)
+    res = serve.run_sustained(arch=ARCH, smoke=True, device="cpu", n=16, rate=4.0,
+                              device_pages=64, host_pages=256)
+    closed, open_ = where
+    moved = {rid: next(i for i, (a, b) in enumerate(zip(closed[rid], open_[rid])) if a != b)
+             for rid in closed if closed[rid] != open_[rid]}
+    assert moved == {6: 7, 7: 6, 8: 8, 12: 0, 15: 2}
+    assert res["pass"] and res["open"]["planahead_hits"] > 0
+    assert [e.stats.iterations for e in made] == [67, 76]

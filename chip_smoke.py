@@ -26,7 +26,11 @@ Phases, each of which fails the run by raising:
              shapes (paged decode also at 4, 8, 16 and 32 pages per range;
              flash prefill also at a FLOP-bound S = 4096 and in fp32; the
              scans also in fp32 and at T = 4096, with each stage's device
-             time from torch.profiler);
+             time from torch.profiler); and paged decode and flash prefill
+             at the moe, vlm and audio paths' shapes (deepseek-moe-16b's
+             one query head per KV head, internvl2-1b's seven at hd 64,
+             seamless-m4t-medium's non-causal encoder over 1,024 frames and
+             its decoder), checked in fp32 and bf16 and timed in bf16;
 3. serve   — the port's paths, each driven through ``launch.serve`` with
              every kernel's launch counter zeroed just before and read just
              after: full-width qwen3-0.6b (bf16) through the serial paged
@@ -80,6 +84,31 @@ Phases, each of which fails the run by raising:
              calls; K1 and K2 are first held to their plain versions at
              qwen3-14b's shapes (5 query heads per KV head) and the draft
              windows in phase 2;
+3e. moe/vlm — (a) full-width, full-depth deepseek-moe-16b (bf16, 16.4 B
+             random parameters drawn on the card), 8 requests of 256-512
+             tokens, 16 outputs, pools 64/512 (the neo policy offloads and
+             a swap goes through the TransferEngine): serial, then
+             pipelined; K1 = 28 x decode passes (with merges), K2 = 28 x
+             prefill calls; pipelined = serial bitwise in bf16 (asserted:
+             tests/test_torch_moe_card.py found each FFN row bitwise the
+             same in buckets 8-64); (b) the same prompts in fp32 at full
+             width and 6 layers (dense0 + 5 moe), pipelined, no recompute,
+             every token held to an oracle that prefills each prompt alone
+             padded to its engine batch's length (a moe layer's capacity
+             follows it) with the plain attention, then decodes
+             teacher-forced; (c) full internvl2-1b, 8 image requests (256
+             seeded patch embeddings, then 64-256 text tokens): bf16
+             pipelined with K1/K2 counted, fp32 held to the dense plain
+             oracle with the same patches; (d) the int8 KV cache on
+             deepseek-moe-16b (bf16, full width): every dequantised prefill
+             K/V entry within half a scale step of the bf16 cache's, greedy
+             agreement and largest |logit difference| over 8 steps printed;
+3f. audio   — full-width seamless-m4t-medium (bf16) on the contiguous
+             engine: 8 requests with 1,024 seeded frames each and prompts of
+             64-256 tokens, 16 outputs; K2 = 24 x prefills (12 non-causal
+             encoder + 12 causal decoder layers), no other kernel; then fp32,
+             every token held to the model's own plain prefill plus
+             teacher-forced decode;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
@@ -370,12 +399,12 @@ def flash_sweep(torch, cases, seed):
     return worst
 
 
-def flash_time(torch, flush, label, B, S, H, KV, hd, window, dt_name="bfloat16"):
-    """Kernel, plain version and SDPA (causal, GQA; the port never calls it)
-    at one shape in ``dt_name`` (bf16: the tensor-core kernel; fp32: the
-    CUDA-core kernel, its bound at the f32 rate), after holding the kernel
-    to its plain version there; window must not cut below S (SDPA runs
-    causal)."""
+def flash_time(torch, flush, label, B, S, H, KV, hd, window, dt_name="bfloat16", causal=True):
+    """Kernel, plain version and SDPA (GQA; the port never calls it) at one
+    shape in ``dt_name`` (bf16: the tensor-core kernel; fp32: the CUDA-core
+    kernel, its bound at the f32 rate), causal or not, after holding the
+    kernel to its plain version there; window must not cut below S (SDPA
+    runs without one)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
@@ -383,20 +412,22 @@ def flash_time(torch, flush, label, B, S, H, KV, hd, window, dt_name="bfloat16")
 
     assert window == 0 or window >= S
     q, k, v = flash_inputs(torch, B, S, H, KV, hd, getattr(torch, dt_name), seed=7)
-    err = flash_check(torch, dt_name, dict(B=B, S=S, H=H, KV=KV, hd=hd, causal=True,
+    err = flash_check(torch, dt_name, dict(B=B, S=S, H=H, KV=KV, hd=hd, causal=causal,
                                            window=window), q, k, v)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    t_k = time_ms(torch, lambda: flash_prefill(q, k, v, causal=True, window=window), flush)
-    t_p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, causal=True, window=window), flush)
-    t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    t_k = time_ms(torch, lambda: flash_prefill(q, k, v, causal=causal, window=window), flush)
+    t_p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, causal=causal, window=window),
+                  flush)
+    t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                                 enable_gqa=True), flush)
-    b_ms, b_by = flash_bound(q, k, True, window,
+    b_ms, b_by = flash_bound(q, k, causal, window,
                              BF16_FLOPS if dt_name == "bfloat16" else F32_FLOPS)
-    log(f"[kernel] timing flash_prefill {label}: B={B} S={S} H={H} KV={KV} hd={hd} "
+    kind = "causal" if causal else "non-causal"
+    log(f"[kernel] timing flash_prefill {label}: B={B} S={S} H={H} KV={KV} hd={hd} {kind} "
         f"window={window} {dt_name} kernel={t_k:.4f} ms plain={t_p:.4f} ms sdpa={t_l:.4f} ms "
         f"bound={b_ms:.4f} ms ({b_by}) max_abs_err={err:.3e}")
     return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=err, shape=f"B={B} S={S} H={H} KV={KV} hd={hd} causal "
+                max_abs_err=err, shape=f"B={B} S={S} H={H} KV={KV} hd={hd} {kind} "
                 f"window={window} {dt_name}")
 
 
@@ -465,6 +496,53 @@ def spec_kernel_phase(torch):
                                                 0)}
     del flush
     return timed, worst, flash_worst
+
+
+def p11_kernel_phase(torch):
+    """K1 and K2 at the shapes the moe, vlm and audio paths hand them, held
+    to their plain versions in fp32 and bf16, then timed in bf16 (L2
+    flushed) beside SDPA and their bound: deepseek-moe-16b's one query head
+    per KV head (hd 128), internvl2-1b's seven (hd 64; K2's bf16 kernel
+    pairs query heads, so an odd count leaves one lane dead), and
+    seamless-m4t-medium's non-causal encoder attention over 1,024 frames and
+    its causal decoder prefill (16 heads, hd 64)."""
+    import random
+
+    from repro_torch.kernels.paged_decode.ops import paged_decode_attention as kern
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+
+    rng = random.Random(19)
+    lens = [rng.randint(256, 528) for _ in range(8)]  # prompts of 256-512 + 16 outputs
+    decode_shapes = {MOE_ARCH: (16, 16, 128), VLM_ARCH: (14, 2, 64)}
+    decode_worst = {}
+    for arch, (H, KV, hd) in decode_shapes.items():
+        for dt_name in ("float32", "bfloat16"):
+            q, kp, vp, bt, ln = make_case(torch, 8, H, KV, hd, 16, lens,
+                                          getattr(torch, dt_name), seed=50 + H)
+            out = kern(q, kp, vp, bt, ln)
+            torch.cuda.synchronize()
+            err = _close(torch, "paged_decode", dt_name, arch,
+                         [("o", out, paged_decode_ref(q, kp, vp, bt, ln))])
+            decode_worst[dt_name] = max(decode_worst.get(dt_name, 0.0), err)
+            log(f"[kernel] paged_decode {dt_name} {arch} B=8 H={H} KV={KV} hd={hd} "
+                f"lens={lens} max_abs_err={err:.3e} tol={TOL[dt_name]} ok")
+    flash_worst = flash_sweep(torch, [
+        dict(B=8, S=512, H=16, KV=16, hd=128, causal=True, window=0),
+        dict(B=8, S=512, H=14, KV=2, hd=64, causal=True, window=0),
+        dict(B=1, S=1024, H=16, KV=16, hd=64, causal=False, window=0),
+        dict(B=1, S=256, H=16, KV=16, hd=64, causal=True, window=0)], seed=500)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    timed = {
+        "decode_deepseek": decode_time(torch, flush, MOE_ARCH, 8, 16, 16, 128, lens),
+        "decode_internvl2": decode_time(torch, flush, VLM_ARCH, 8, 14, 2, 64, lens),
+        "prefill_deepseek": flash_time(torch, flush, MOE_ARCH, 1, 512, 16, 16, 128, 0),
+        "prefill_internvl2": flash_time(torch, flush, VLM_ARCH, 1, 512, 14, 2, 64, 0),
+        "prefill_seamless_encoder": flash_time(torch, flush, "seamless encoder", 1, 1024, 16,
+                                               16, 64, 0, causal=False),
+        "prefill_seamless_decoder": flash_time(torch, flush, "seamless decoder", 1, 256, 16,
+                                               16, 64, 0)}
+    del flush
+    return timed, decode_worst, flash_worst
 
 
 def _close(torch, name, dt_name, case, pairs):
@@ -744,8 +822,10 @@ def drive(engine, trace, runner):
     layer), the host lanes (no kernel) and the prefills, with those that
     have a cold row (each launches the flash prefill kernel once per layer;
     prefix-cache hits prefill their suffix in plain attention, as the
-    reference does).  Also returns each prefill's (B, S) and the residency
-    of each prefilled row's prefix, keyed by prompt."""
+    reference does).  Also returns each prefill's (B, padded S) and the
+    residency of each prefilled row's prefix, keyed by prompt."""
+    from repro_torch.core.executor import _bucket
+
     ex = engine.executor
     calls = {"decode": 0, "decode_batch0": 0, "prefill": 0, "prefill_with_cold_row": 0}
     shapes, residency = [], {}
@@ -757,7 +837,8 @@ def drive(engine, trace, runner):
             calls[name] += 1
             if name == "prefill":
                 reqs, to_host = a[0], a[1]
-                shapes.append((len(reqs), max(r.prefill_len for r in reqs)))
+                # the padded batch the cold prefill hands K2 (the reference's bucket)
+                shapes.append((len(reqs), _bucket(max(r.prefill_len for r in reqs), 16)))
                 calls["prefill_with_cold_row"] += any(r.cached_len == 0 for r in reqs)
                 for r, host in zip(reqs, to_host):
                     residency[tuple(r.prompt)] = residency_of(r, host)
@@ -1011,15 +1092,17 @@ def busy_share_phase(torch, cfg, device, card, *, steps=8):
             "card": card}
 
 
-def dense_oracle_parity(torch, model, runs, chunk=8):
+def dense_oracle_parity(torch, model, runs, chunk=8, patches=None):
     """Every token of ``runs`` [(rid, prompt, emitted tokens)] must be the
     oracle's argmax or within NEAR_TIE of its max logit; the oracle is
     ``model``'s plain contiguous prefill over prompt + out[:i] (rows of one
-    request batched with true_lens), with the plain attention, never the
-    flash prefill kernel.  Returns the counts."""
+    request batched with true_lens; a vlm request's ``patches[rid]`` in each
+    row), with the plain attention, never the flash prefill kernel.
+    Returns the counts."""
     exact = ties = total = 0
     worst_gap = 0.0
     for rid, prompt, out in runs:
+        pe = None if patches is None else torch.as_tensor(patches[rid])
         seqs = [prompt + out[:i] for i in range(len(out))]
         for c0 in range(0, len(seqs), chunk):
             rows = seqs[c0:c0 + chunk]
@@ -1028,7 +1111,8 @@ def dense_oracle_parity(torch, model, runs, chunk=8):
             for j, r in enumerate(rows):
                 tok[j, : len(r)] = torch.tensor(r)
             lens = torch.tensor([len(r) for r in rows], dtype=torch.int32)
-            logits, _ = model.prefill(tok, true_lens=lens, impl="plain")
+            kw = {} if pe is None else {"patch_embeds": pe[None].expand(len(rows), *pe.shape)}
+            logits, _ = model.prefill(tok, true_lens=lens, impl="plain", **kw)
             for j in range(len(rows)):
                 want = int(logits[j].argmax())
                 got = out[c0 + j]
@@ -1625,6 +1709,384 @@ def spec_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 3e and 3f: moe, vlm and the int8 cache; the encoder-decoder
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, VLM_ARCH, AUDIO_ARCH = "deepseek-moe-16b", "internvl2-1b", "seamless-m4t-medium"
+P11_OUT = 16  # outputs per request in 3e and 3f
+MOE_FP32_LAYERS = 6  # dense0 + 5 moe layers at full width: ~13.8 GB in fp32
+AUDIO_FRAMES = 1024
+
+
+def p11_trace(vocab, seed, lo, hi, *, image=0):
+    """8 requests at t = 0, prompts of lo..hi tokens (after ``image``
+    placeholder positions, which a vlm's patches replace), P11_OUT outputs."""
+    import numpy as np
+
+    from repro_torch.serving.traces import TraceRequest
+
+    rng = np.random.default_rng(seed)
+    trace = [TraceRequest(0.0, image + int(rng.integers(lo, hi + 1)), P11_OUT)
+             for _ in range(8)]
+    for t in trace:
+        t.materialise(rng, vocab)
+    return trace
+
+
+def seeded_extras(trace, key, shape, seed, scale=1.0):
+    """{id(trace request): {key: seeded float32 array of ``shape``}} and the
+    ``extras_fn`` of ``launch.serve.run_trace`` that hands them out."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    table = {id(t): {key: (rng.standard_normal(shape, dtype=np.float32) * scale)}
+             for t in trace}
+    return table, lambda tr: table[id(tr)]
+
+
+def paged_serve(torch, cfg, trace, card, *, pipeline, extras_fn=None, label=""):
+    """The trace through ``launch.serve.run_trace`` on the paged engine
+    (pools 64/512: the neo policy must offload; the perf model frozen, so
+    the serial and pipelined runs plan alike and each row decodes where it
+    decodes in the other), counted by :func:`drive`; K1 = layers x decode
+    passes, K2 = layers x prefill calls.  Returns (tokens by rid, summary,
+    each rid's residency at each emitted token)."""
+    from repro_torch.core.engine import NeoEngine
+    from repro_torch.launch.serve import run_trace
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = NeoEngine(cfg, dataclasses.replace(engine_config(64, 512, pipeline=pipeline),
+                                                ewma_alpha=0.0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    residency, step = collections.defaultdict(str), engine._step
+
+    def located_step(now):
+        emitted = step(now)
+        for rid, _ in emitted:
+            residency[rid] += "h" if engine.requests[rid].location == "cpu" else "d"
+        return emitted
+
+    engine._step = located_step
+    m, launched, calls, shapes, _ = drive(engine, trace, lambda e, t: run_trace(
+        e, t, vocab=cfg.vocab_size, extras_fn=extras_fn))
+    engine.close()
+    check_paged_launches(cfg, launched, calls, label)
+    s = engine.stats
+    done = [r for r in engine.requests.values() if r.state.name == "FINISHED"]
+    if len(done) != len(trace):
+        raise AssertionError(f"{label}: only {len(done)}/{len(trace)} requests finished")
+    if not (s.offloaded_decodes > 0 and s.device_decodes > 0 and engine.pool.swap_bytes > 0):
+        raise AssertionError(f"{label}: the neo policy did not offload (offloaded="
+                             f"{s.offloaded_decodes}, swap bytes {engine.pool.swap_bytes})")
+    if pipeline and s.swap_out_bytes + s.swap_in_bytes <= 0:
+        raise AssertionError(f"{label}: no swap went through the TransferEngine")
+    summary = {**serve_summary(cfg, engine, m, launched, calls, card),
+               "prompt_tokens": sum(t.prompt_len for t in trace), "prefill_shapes": shapes,
+               "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9, "init_s": init_s}
+    tokens = {rid: list(r.out_tokens) for rid, r in engine.requests.items()}
+    # drop the counting wrappers (each holds the engine in a cycle) so the
+    # model's memory goes back to the card now, not at the next collection
+    del engine._step
+    for name in ("decode", "decode_batch0", "prefill"):
+        del engine.executor.__dict__[name]
+    del engine, step, located_step
+    free_card(torch)
+    summary["allocated_after_GB"] = torch.cuda.memory_allocated() / 1e9
+    return tokens, summary, dict(residency)
+
+
+def moe_phase_a(torch, card):
+    """(a) deepseek-moe-16b, bf16, full width and depth: serial, then
+    pipelined, on one trace and the same seeded weights."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    # seed 24: the three device rows fill the pool, so growing them swaps one out
+    trace = p11_trace(cfg.vocab_size, 24, 256, 512)
+    ser_tok, ser, ser_where = paged_serve(torch, cfg, trace, card, pipeline=False,
+                                          label="moe phase (a) serial")
+    pip_tok, pip, pip_where = paged_serve(torch, cfg, trace, card, pipeline=True,
+                                          label="moe phase (a) pipelined")
+    same = sum(x == y for rid in pip_tok for x, y in zip(pip_tok[rid], ser_tok[rid]))
+    total = sum(len(v) for v in pip_tok.values())
+    pip.update(tokens_equal_to_serial=same, tokens=total,
+               residency_equal_to_serial=pip_where == ser_where)
+    for rid in sorted(pip_tok):
+        if pip_tok[rid] != ser_tok[rid]:
+            first = next(i for i, (a, b) in enumerate(zip(pip_tok[rid], ser_tok[rid])) if a != b)
+            log(f"[moe] (a) rid {rid} differs from token {first}; residency per token "
+                f"(d = card, h = host) serial {ser_where[rid]} pipelined {pip_where[rid]}")
+    log(json.dumps({"moe": ser}))
+    log(json.dumps({"moe": pip}))
+    # asserted: through the executor's 64-row slices a row of deepseek's decode
+    # step is bitwise the same in buckets 8-128 (tests/test_torch_moe_card.py)
+    log(f"[moe] (a) {cfg.name} bf16 pipelined vs serial: {same} of {total} tokens equal "
+        "(asserted)")
+    if same != total:
+        raise AssertionError(f"moe phase (a): {same} of {total} bf16 tokens equal serial's")
+    return ser, pip, trace
+
+
+def moe_phase_b(torch, trace, card):
+    """(b) deepseek-moe-16b in fp32 at full width and MOE_FP32_LAYERS deep,
+    pipelined, pools 64/512: every emitted token must be its oracle's argmax
+    or a near-tie.  A moe layer's capacity follows the padded S of the
+    prefill batch a row came in, so the oracle prefills each prompt alone,
+    padded to that S (true_lens), with the plain attention, then decodes
+    teacher-forced over the contiguous cache (T = 1, capacity 1: nothing
+    drops there).  A recompute replay would prefill at another S: none may
+    happen."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import NeoEngine
+    from repro_torch.core.executor import _bucket
+
+    cfg32 = get_config(MOE_ARCH).replace(num_layers=MOE_FP32_LAYERS, param_dtype="float32",
+                                         activation_dtype="float32")
+    engine = NeoEngine(cfg32, dataclasses.replace(engine_config(64, 512, pipeline=True),
+                                                  ewma_alpha=0.0), device="cuda")
+    batch_s, prefill = {}, engine.executor.prefill
+
+    def recorded(reqs, to_host, extras_fn=None):
+        S = _bucket(max(r.prefill_len for r in reqs), 16)
+        for r in reqs:
+            batch_s.setdefault(r.rid, []).append(S)
+        return prefill(reqs, to_host, extras_fn)
+
+    engine.executor.prefill = recorded
+    rids = [engine.submit(t.prompt, t.output_len) for t in trace]
+    outs = engine.run_until_done(10_000)
+    engine.close()
+    s = engine.stats
+    preempts = sum(int(p.split("preempt=")[1].split()[0]) for p in s.plans)
+    if preempts or any(len(v) != 1 for v in batch_s.values()):
+        raise AssertionError(f"moe phase (b): {preempts} preemptions, prefills {batch_s}")
+    if s.offloaded_decodes <= 0:
+        raise AssertionError("moe phase (b): nothing was offloaded")
+    model = engine.model
+    exact = ties = total = 0
+    worst_gap = 0.0
+    for rid, t in zip(rids, trace):
+        out, S, n = outs[rid], batch_s[rid][0], t.prompt_len
+        tok = torch.zeros(1, S, dtype=torch.long)
+        tok[0, :n] = torch.tensor(t.prompt)
+        logits, cache = model.prefill(tok, capacity=S + P11_OUT, impl="plain",
+                                      true_lens=torch.tensor([n], dtype=torch.int32))
+        for i, got in enumerate(out):
+            want = int(logits[0].argmax())
+            gap = float(logits[0, want] - logits[0, got])
+            total += 1
+            exact += got == want
+            if got != want:
+                if gap > NEAR_TIE:
+                    raise AssertionError(f"moe phase (b): rid {rid} token {i}: engine {got}, "
+                                         f"oracle {want}, logit gap {gap:.3e} > {NEAR_TIE}")
+                ties += 1
+                worst_gap = max(worst_gap, gap)
+            if i + 1 < len(out):
+                logits, cache = model.decode(torch.tensor([got]), cache)
+    out = dict(model=cfg32.name, layers=MOE_FP32_LAYERS, dtype="float32", tokens=total,
+               exact=exact, near_ties=ties, worst_tie_gap=worst_gap, preemptions=preempts,
+               prefill_S=sorted({v[0] for v in batch_s.values()}),
+               offloaded_decodes=s.offloaded_decodes, device_decodes=s.device_decodes,
+               card=card)
+    del engine, model, cache
+    free_card(torch)
+    return out
+
+
+def vlm_phase(torch, card):
+    """(c) internvl2-1b, full width and depth: 8 image requests (256 seeded
+    patch embeddings each, then 64-256 text tokens), bf16 through the
+    pipelined engine (K1 and K2 counted), then fp32 held token for token to
+    the dense plain oracle with the same patches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import NeoEngine
+
+    cfg = get_config(VLM_ARCH)
+    P = cfg.modality.num_embeds
+    # seed 34: at 256 patches the three device rows fill the pool (swaps)
+    trace = p11_trace(cfg.vocab_size, 34, 64, 256, image=P)
+    table, extras_fn = seeded_extras(trace, "patch_embeds", (P, cfg.d_model), 24, scale=0.02)
+    _, bf16, _ = paged_serve(torch, cfg, trace, card, pipeline=True, extras_fn=extras_fn,
+                             label="vlm phase bf16")
+    log(json.dumps({"vlm": bf16}))
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    engine = NeoEngine(cfg32, engine_config(64, 512, pipeline=True), device="cuda")
+    rids = [engine.submit(t.prompt, t.output_len, extras=table[id(t)]) for t in trace]
+    outs = engine.run_until_done(10_000)
+    engine.close()
+    counts = dense_oracle_parity(torch, engine.model,
+                                 [(rid, t.prompt, outs[rid]) for rid, t in zip(rids, trace)],
+                                 patches={rid: table[id(t)]["patch_embeds"]
+                                          for rid, t in zip(rids, trace)})
+    parity = dict(model=cfg.name, dtype="float32", **counts,
+                  offloaded_decodes=engine.stats.offloaded_decodes, card=card)
+    del engine
+    free_card(torch)
+    return bf16, parity
+
+
+def int8_phase(torch, card, *, prompt_len=256, steps=8):
+    """(d) The int8 KV cache, deepseek-moe-16b at full width in bf16: one
+    prompt through ``DenseLM.prefill`` and ``decode`` with
+    ``kv_cache_dtype="int8"`` beside the bf16 cache, on the same weights
+    (the int8 model is a shallow copy sharing the bf16 model's parameters).
+    Every dequantised prefill K/V entry must lie within half a scale step of
+    the bf16 cache's value (the same K/V, quantised); the greedy agreement
+    over ``steps`` decode steps (each side feeding its own argmax) and the
+    largest |logit difference| are recorded, as the reference's test
+    measures them, not asserted at random weights."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    cfg = get_config(MOE_ARCH)
+    model = get_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    int8 = copy.copy(model)
+    int8.cfg = cfg.replace(kv_cache_dtype="int8")
+    prompt = np.random.default_rng(29).integers(1, cfg.vocab_size, size=prompt_len)
+    tok = torch.tensor(prompt[None], device="cuda")
+    cap = prompt_len + steps
+    lo, c = model.prefill(tok, capacity=cap)
+    lo8, c8 = int8.prefill(tok, capacity=cap)
+    half_steps = {}
+    for name in ("k", "v"):
+        scale = c8[name + "_scale"][:, :, :prompt_len].float()
+        deq = c8[name][:, :, :prompt_len].float() * scale[..., None]
+        err = (deq - c[name][:, :, :prompt_len].float()).abs() / scale[..., None]
+        half_steps[name] = float(err.max())
+        if half_steps[name] > 0.5 * (1 + 1e-3):
+            raise AssertionError(f"int8 phase: a dequantised {name} entry lies "
+                                 f"{half_steps[name]:.4f} scale steps from the bf16 cache's")
+    agree = int(int(lo.argmax()) == int(lo8.argmax()))
+    worst = float((lo - lo8).abs().max())
+    for _ in range(steps):
+        lo, c = model.decode(lo.argmax(-1), c)
+        lo8, c8 = int8.decode(lo8.argmax(-1), c8)
+        agree += int(int(lo.argmax()) == int(lo8.argmax()))
+        worst = max(worst, float((lo - lo8).abs().max()))
+    cache_bytes = {"bf16": sum(c[n].numel() * c[n].element_size() for n in ("k", "v")),
+                   "int8": sum(c8[n].numel() * c8[n].element_size()
+                               for n in ("k", "v", "k_scale", "v_scale"))}
+    out = dict(model=cfg.name, prompt=prompt_len, steps=steps,
+               greedy_agree=f"{agree}/{steps + 1}", max_abs_logit_diff=worst,
+               max_prefill_err_in_scale_steps=half_steps, cache_bytes=cache_bytes, card=card)
+    del model, int8, c, c8
+    free_card(torch)
+    return out
+
+
+def audio_engine_config(tracing=False):
+    from repro_torch.config import EngineConfig
+
+    return EngineConfig(max_requests=8, max_batch_tokens=512, policy="neo", pipeline=False,
+                        hw_profile="h100_sxm", seed=0, tracing=tracing)
+
+
+def audio_phase(torch, card):
+    """3f. seamless-m4t-medium, bf16, full width, on the contiguous engine:
+    8 requests with AUDIO_FRAMES seeded frames each and prompts of 64-256
+    tokens; K2 = 24 x prefills (12 non-causal encoder and 12 causal decoder
+    layers), no other kernel.  Then in fp32 every token held to the model's
+    own plain prefill plus teacher-forced decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import NeoEngine
+    from repro_torch.launch.serve import run_trace
+
+    cfg = get_config(AUDIO_ARCH)
+    trace = p11_trace(cfg.vocab_size, 31, 64, 256)
+    table, extras_fn = seeded_extras(trace, "frames", (AUDIO_FRAMES, cfg.d_model), 32)
+    torch.cuda.reset_peak_memory_stats()
+    engine = NeoEngine(cfg, audio_engine_config(), device="cuda")
+    if engine.paged:
+        raise AssertionError(f"{cfg.name} took the paged path")
+    calls, prefill = [0], engine.executor.prefill
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return prefill(*a, **k)
+
+    engine.executor.prefill = counted
+    zero_counters()
+    m = run_trace(engine, trace, vocab=cfg.vocab_size, extras_fn=extras_fn)
+    launched = counters()
+    engine.close()
+    want = {k: 0 for k in launched}
+    want["flash_prefill"] = (cfg.encdec.encoder_layers + cfg.num_layers) * calls[0]
+    if launched != want or calls[0] != len(trace):
+        raise AssertionError(f"audio phase: launches {launched} != {want} ({calls[0]} "
+                             f"prefills of {len(trace)} requests)")
+    s = engine.stats
+    summary = {"model": cfg.name, "dtype": cfg.activation_dtype, "frames": AUDIO_FRAMES,
+               "requests": len(m.finished), "prompt_tokens": sum(t.prompt_len for t in trace),
+               "output_tok_s": m.throughput, "ttft_s": m.ttft(), "tpot_s": m.tpot(),
+               "makespan_s": m.makespan, "iterations": s.iterations, "prefills": calls[0],
+               "lane_busy_s": dict(s.lane_busy_time), "kernel_launches": launched,
+               "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    del engine
+    free_card(torch)
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    engine = NeoEngine(cfg32, audio_engine_config(), device="cuda")
+    rids = [engine.submit(t.prompt, t.output_len, extras=table[id(t)]) for t in trace]
+    outs = engine.run_until_done(10_000)
+    engine.close()
+    model = engine.model
+    exact = ties = total = 0
+    worst_gap = 0.0
+    for rid, t in zip(rids, trace):
+        out = outs[rid]
+        frames = torch.from_numpy(table[id(t)]["frames"])[None]
+        logits, cache = model.prefill(torch.tensor([t.prompt]), capacity=t.prompt_len + P11_OUT,
+                                      frames=frames, impl="plain")
+        for i, got in enumerate(out):
+            want = int(logits[0].argmax())
+            gap = float(logits[0, want] - logits[0, got])
+            total += 1
+            exact += got == want
+            if got != want:
+                if gap > NEAR_TIE:
+                    raise AssertionError(f"audio parity: rid {rid} token {i}: engine {got}, "
+                                         f"oracle {want}, logit gap {gap:.3e} > {NEAR_TIE}")
+                ties += 1
+                worst_gap = max(worst_gap, gap)
+            if i + 1 < len(out):
+                logits, cache = model.decode(torch.tensor([got]), cache)
+    parity = dict(model=cfg.name, dtype="float32", tokens=total, exact=exact, near_ties=ties,
+                  worst_tie_gap=worst_gap, card=card)
+    del engine, model, cache
+    free_card(torch)
+    return summary, parity
+
+
+def p11_phase(torch, card):
+    """Phases 3e (a)-(d) and 3f, each summary printed as it ends."""
+    t0 = time.perf_counter()
+    ser, pip, trace = moe_phase_a(torch, card)
+    moe32 = moe_phase_b(torch, trace, card)
+    log(json.dumps({"parity": moe32}))
+    vlm, vlm32 = vlm_phase(torch, card)
+    log(json.dumps({"parity": vlm32}))
+    int8 = int8_phase(torch, card)
+    log(json.dumps({"int8": int8}))
+    audio, audio32 = audio_phase(torch, card)
+    log(json.dumps({"audio": audio}))
+    log(json.dumps({"parity": audio32}))
+    log(f"[p11] deepseek bf16 pipelined = serial {pip['tokens_equal_to_serial']}/"
+        f"{pip['tokens']}; fp32 {MOE_FP32_LAYERS}-layer parity {moe32['exact']}+"
+        f"{moe32['near_ties']}/{moe32['tokens']}; internvl2 fp32 parity "
+        f"{vlm32['exact']}+{vlm32['near_ties']}/{vlm32['tokens']}; int8 greedy "
+        f"{int8['greedy_agree']}, max |dlogit| {int8['max_abs_logit_diff']:.4f}; seamless fp32 "
+        f"parity {audio32['exact']}+{audio32['near_ties']}/{audio32['tokens']}; phases "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"moe_serial": ser, "moe_pipelined": pip, "vlm": vlm, "audio": audio}
+
+
+# ---------------------------------------------------------------------------
 # the contiguous paths: rwkv6-7b and zamba2-7b
 # ---------------------------------------------------------------------------
 
@@ -1821,10 +2283,12 @@ def main() -> int:
     rwkv6_t, _ = rwkv6_kernel_phase(torch)
     ssd_t, _ = mamba2_kernel_phase(torch)
     spec_t, spec_decode_worst, spec_flash_worst = spec_kernel_phase(torch)
-    for dt_name, err in spec_flash_worst.items():
-        flash_worst[dt_name] = max(flash_worst[dt_name], err)
-    for dt_name, err in spec_decode_worst.items():
-        worst[dt_name] = max(worst[dt_name], err)
+    p11_t, p11_decode_worst, p11_flash_worst = p11_kernel_phase(torch)
+    for dt_name in ("float32", "bfloat16"):
+        flash_worst[dt_name] = max(flash_worst[dt_name], spec_flash_worst[dt_name],
+                                   p11_flash_worst[dt_name])
+        worst[dt_name] = max(worst[dt_name], spec_decode_worst[dt_name],
+                             p11_decode_worst[dt_name])
 
     # -- phase 3: serve each path --------------------------------------------
     cfg = get_config("qwen3-0.6b")
@@ -1863,6 +2327,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     prefix_a, prefix_b, _ = prefix_phase(torch, cfg, card)
     spec_a, _, spec_c, _ = spec_phase(torch, card)
+    p11 = p11_phase(torch, card)
     ssm = {}
     for arch in ("rwkv6-7b", "zamba2-7b"):
         summary, ssm_trace, tokens, _, _ = ssm_serve_phase(torch, get_config(arch), "cuda")
@@ -1909,6 +2374,8 @@ def main() -> int:
         "launches_spec_path": spec_a["ngram"]["kernel_launches"]["paged_decode"],
         "merge_launches_spec_path": spec_a["ngram"]["kernel_launches"]["paged_decode_merge"],
         "launches_spec_path_draft_model": spec_c["kernel_launches"]["paged_decode"],
+        "launches_moe_path": p11["moe_pipelined"]["kernel_launches"]["paged_decode"],
+        "launches_vlm_path": p11["vlm"]["kernel_launches"]["paged_decode"],
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -1922,6 +2389,8 @@ def main() -> int:
         "pages_per_split_ms": main_t["pages_per_split_ms"],
         "long": timed["long"],
         "qwen3_14b": spec_t["decode_qwen3_14b"],
+        "deepseek_moe_16b": p11_t["decode_deepseek"],
+        "internvl2_1b": p11_t["decode_internvl2"],
     }, {
         "name": "flash_prefill",
         "route": "cuda",
@@ -1934,6 +2403,9 @@ def main() -> int:
         "launches_zamba2": ssm["zamba2-7b"][0]["kernel_launches"]["flash_prefill"],
         "launches_spec_path": spec_c["kernel_launches"]["flash_prefill"],
         "launches_spec_path_draft_prefills": spec_c["draft_prefills"],
+        "launches_moe_path": p11["moe_pipelined"]["kernel_launches"]["flash_prefill"],
+        "launches_vlm_path": p11["vlm"]["kernel_launches"]["flash_prefill"],
+        "launches_audio_path": p11["audio"]["kernel_launches"]["flash_prefill"],
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,
         "ms": q_t["ms"],
@@ -1948,7 +2420,9 @@ def main() -> int:
         "fp32_bound_ms": flash_t["qwen3_fp32"]["bound_ms"],
         "other_shapes": {**{k: v for k, v in flash_t.items() if k != "qwen3"},
                          "qwen3_14b": spec_t["prefill_qwen3_14b"],
-                         "draft_window": spec_t["prefill_draft_window"]},
+                         "draft_window": spec_t["prefill_draft_window"],
+                         **{k[len("prefill_"):]: v for k, v in p11_t.items()
+                            if k.startswith("prefill_")}},
     }, scan_entry("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",
                   ssm["rwkv6-7b"][0]["kernel_launches"], rwkv6_t,

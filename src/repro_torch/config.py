@@ -195,8 +195,9 @@ class ArchConfig:
         return param_count(self)
 
     def active_param_count(self) -> int:
-        # only the dense family is ported: every parameter is active
-        return self.param_count()
+        from repro_torch.models.api import active_param_count
+
+        return active_param_count(self)
 
 
 # ---------------------------------------------------------------------------

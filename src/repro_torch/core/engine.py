@@ -2,8 +2,8 @@
 
 The engine is paged or contiguous as the reference decides
 (``cfg.family in PAGED_FAMILIES and cfg.supports_offload``).  On the paged
-path (dense family) one :meth:`NeoEngine.step` is one inference iteration in
-explicit **plan → launch → join** phases:
+path (dense, moe and vlm families) one :meth:`NeoEngine.step` is one
+inference iteration in explicit **plan → launch → join** phases:
 
 * **plan** — the load-aware scheduler builds the two-batch asymmetric plan
   (which decode rows attend on the device, which on the host; swaps;
@@ -29,11 +29,18 @@ With ``pipeline=False`` (or a "serial"-mode plan) swaps copy inline
 device-lane window ends at a synchronising copy of its logits to the host,
 so the overlap counters of :class:`EngineStats` measure work, not launches.
 
-On the contiguous path (ssm and hybrid families, device-only) the scheduler
-sees one "page" per slot of :class:`ContiguousExecutor`; a step prefills its
-new requests one at a time into free slots, then runs one decode over all
-slots in which only the running rows' slots advance.  ``pipeline`` does not
-apply there, as in the reference.
+On the contiguous path (ssm, hybrid and audio families, device-only) the
+scheduler sees one "page" per slot of :class:`ContiguousExecutor`; a step
+prefills its new requests one at a time into free slots, then runs one
+decode over all slots in which only the running rows' slots advance.
+``pipeline`` does not apply there, as in the reference.
+
+A request's ``extras`` (``submit``/``offer``) are its model inputs beside
+the tokens, as in the reference: a vlm's ``patch_embeds``, stacked over a
+paged prefill batch by :meth:`NeoEngine._extras_batch`, and an
+encoder-decoder's ``frames``, handed to its contiguous prefill.  A request
+with extras is never prefix-cached, and a recompute replay prefills with
+them again.
 
 Tracing (``EngineConfig.tracing``, :mod:`repro_torch.obs`) is off by
 default.  When on, every emit site sits behind ``if tracer is not None``, so
@@ -333,7 +340,11 @@ class NeoEngine:
         *,
         arrival_time: Optional[float] = None,
         eos_token: Optional[int] = None,
+        extras: Optional[Dict[str, np.ndarray]] = None,
     ) -> int:
+        """Queue a request; ``extras`` are its model inputs beside the
+        tokens (a vlm's ``patch_embeds`` [P, d], an encoder-decoder's
+        ``frames`` [F, d]).  A request with extras is not prefix-cached."""
         rid = self._next_rid
         self._next_rid += 1
         req = Request(
@@ -343,7 +354,9 @@ class NeoEngine:
             arrival_time=self.clock if arrival_time is None else arrival_time,
             eos_token=eos_token,
         )
-        if self.prefix_cache is not None:
+        if extras:
+            req.extras = extras
+        if self.prefix_cache is not None and not extras:
             # longest-prefix match (an estimate, re-matched and pinned at
             # prefill dispatch) so the scheduler prices the suffix; the
             # residency steers host placement (zero-copy host serving)
@@ -373,6 +386,7 @@ class NeoEngine:
         *,
         arrival_time: Optional[float] = None,
         eos_token: Optional[int] = None,
+        extras: Optional[Dict[str, np.ndarray]] = None,
     ) -> Optional[int]:
         """Admission-controlled :meth:`submit`: returns ``None`` (and counts
         the rejection) when the waitqueue is at ``max_waiting`` depth."""
@@ -382,7 +396,7 @@ class NeoEngine:
                 self.tracer.instant("engine", "reject", {"reason": "max_waiting"})
             return None
         return self.submit(prompt, max_new_tokens, arrival_time=arrival_time,
-                           eos_token=eos_token)
+                           eos_token=eos_token, extras=extras)
 
     def cancel(self, rid: int) -> bool:
         """Mid-flight departure (client disconnect / streaming abort): free
@@ -485,6 +499,24 @@ class NeoEngine:
     # finish, anything the prediction could not see) replans.  Prediction
     # accuracy only moves the hit rate, never the tokens: per-row compute
     # does not depend on the plan's shape.
+
+    @staticmethod
+    def _extras_batch(reqs: List[Request], S: int) -> Dict[str, torch.Tensor]:
+        """The prefill batch's extras, each key stacked over ``reqs`` (the
+        reference's ``_extras_batch``): a request without the key gets a
+        zero row of the others' shape, so a text-only request batched with
+        an image request sees zero patch embeddings at its first positions
+        whenever the padded ``S`` reaches their count (a reference quirk the
+        port carries, ROADMAP queue 3).  ``S`` is unused, as there."""
+        ex = [r.extras for r in reqs]
+        if not any(ex):
+            return {}
+        out = {}
+        for k in sorted(set().union(*[set(e) for e in ex if e])):
+            like = next(np.asarray(e[k]) for e in ex if e and k in e)
+            out[k] = torch.from_numpy(np.stack([np.asarray(e[k]) if e and k in e
+                                                else np.zeros_like(like) for e in ex]))
+        return out
 
     @staticmethod
     def _sig_req(r: Request) -> tuple:
@@ -888,7 +920,7 @@ class NeoEngine:
         dev_windows: List[Tuple[float, float]] = []
         if plan.prefill:
             t0 = time.perf_counter()
-            logits = self.executor.prefill(plan.prefill, to_host)
+            logits = self.executor.prefill(plan.prefill, to_host, self._extras_batch)
             dev_windows.append((t0, time.perf_counter()))
             self.stats.device_busy_time += dev_windows[-1][1] - t0
             self.stats.lane_add("prefill", dev_windows[-1][1] - t0)
@@ -1160,9 +1192,19 @@ class NeoEngine:
             target = "cpu" if host else "gpu"
             pool = self.pool.pool(target)
             total = -(-r.prefill_len // page)
-            if cache is None:
+            if cache is None or r.extras is not None:
+                # not cacheable (no cache, or model inputs beside the tokens,
+                # which the suffix prefill does not take)
                 r.cached_len = 0
+                if cache is not None:
+                    # admitted against free + evictable tree pages: reclaim
+                    # them, or defer
+                    cache.make_room(target, total)
+                    if pool.free_pages < total:
+                        deferred.append(r)
+                        continue
                 r.pages = pool.alloc(total)
+                token_budget -= r.suffix_len
                 to_host.append(host)
                 continue
             shared, cow, r.cached_len = cache.acquire(r.prefill_tokens, target)
@@ -1229,7 +1271,8 @@ class NeoEngine:
         for r in plan.prefill:
             slot = self.executor.alloc_slot()
             r.pages = [slot]
-            logits = self.executor.prefill(r, slot)
+            extras = {k: np.asarray(v)[None] for k, v in r.extras.items()} if r.extras else None
+            logits = self.executor.prefill(r, slot, extras)
             self.stats.prefill_tokens += r.prompt_len
             self._emit(r, logits, now, emitted)
         if plan.prefill:

@@ -1,6 +1,6 @@
 """Execution backends of the NEO engine.
 
-:class:`PagedExecutor` (dense family) runs decode over the paged dual-pool
+:class:`PagedExecutor` (dense, moe and vlm families) runs decode over the paged dual-pool
 KV cache and cold prefill.  Per decode step and layer:
 
 * the projections (norm, QKV, qk_norm, RoPE) run on the device for all rows;
@@ -27,7 +27,10 @@ device lane and with each other: each on a thread of a pool of
 ``host_lanes`` workers and on a CUDA stream of its own.  (On the legacy
 default stream a lane's per-layer copy of q/k/v to the host would wait for
 batch-0's queued kernels, and the overlap would silently vanish.)  Cold
-prefill runs the flash prefill kernel once per layer on the padded batch;
+prefill runs the flash prefill kernel once per layer on the batch padded to
+the reference's length bucket (``_bucket(S, 16)``: a moe layer's capacity
+follows the padded length, and a vlm's patches apply when it reaches their
+count), with the model inputs the engine's ``extras_fn`` stacks for it;
 prefix-cache hits prefill only their suffix, over the cached prefix gathered
 from the device pool or, for host rows, over flash partials the host
 computes on its prefix pages in place (plain attention, as the reference's
@@ -40,18 +43,24 @@ GEMMs of the projections, FFN and logits then run at a bucket-sized row
 count, so the serial pass, batch-0 and each host lane hand cuBLAS the same M
 whenever their row counts share a bucket, and cuBLAS's choice of algorithm
 (and summation order), which depends on M, cannot move a row's bf16 logits
-(ROADMAP ground rule 3; on the H100, at qwen3-0.6b's widths, no decode GEMM
-changed a row's output across buckets 8-64 either: PERF.md). Above 64 rows
-one does (``w_down`` drops its split-K at 128), so larger passes run their
-row-wise work in 64-row slices (:data:`ROW_SLICE`), each a bucket-64 pass:
-a row's logits are then the same in every bucket.  Padded rows carry token 0 at position 0 with
-``lens = 0``; they never write to a pool, never reach
-:class:`HostAttention`, and are dropped at the logits. The reference's page
-buckets for jit and its tensor parallelism are not ported (ROADMAP P13).
+(ROADMAP ground rule 3).  On the H100 the bucket alone is not enough: some
+GEMMs change their algorithm between buckets (qwen3-0.6b's ``w_down`` at
+128 rows, deepseek-moe-16b's FFNs already at 16), so the row-wise work runs
+in slices of :data:`ROW_SLICE` rows, on the card exactly that many (the
+last padded with zero rows), and a row's logits are the same in every
+bucket.  A moe layer routes
+each decode row as a batch row of one token (capacity 1; a row's top-k
+experts are distinct, so nothing drops and rows stay independent), its
+expert products batched matmuls over the bucket's rows.  Padded rows carry
+token 0 at position 0 with ``lens = 0``; they never write to a pool, never
+reach :class:`HostAttention`, and are dropped at the logits. The reference's
+page buckets for jit and its tensor parallelism are not ported (ROADMAP
+P13).
 
-:class:`ContiguousExecutor` (ssm and hybrid families, device-only) keeps one
-slot of a contiguous cache per active request and runs the model's own
-prefill (one request at a time) and decode (all slots at once).
+:class:`ContiguousExecutor` (ssm, hybrid and audio families, device-only)
+keeps one slot of a contiguous cache per active request and runs the
+model's own prefill (one request at a time, with its extras: an
+encoder-decoder's frames) and decode (all slots at once).
 """
 
 from __future__ import annotations
@@ -72,43 +81,53 @@ from repro_torch.core.request import Request
 from repro_torch.core.transfer import WAIT_TIMEOUT_S
 from repro_torch.device import new_stream, on_stream
 from repro_torch.kernels.paged_decode import ops as paged_ops
-from repro_torch.models.layers import rms_norm, swiglu_apply
-from repro_torch.models.transformer import DenseLM, out_proj, project_qkv
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.transformer import DenseLM, mlp_apply, out_proj, project_qkv
 
 
-def _bucket(n: int) -> int:
-    """The reference's decode row bucket: the smallest power-of-two
-    multiple of 8 that holds ``n`` rows."""
-    b = 8
+def _bucket(n: int, minimum: int = 8) -> int:
+    """The reference's bucket: the smallest ``minimum * 2**i`` that holds
+    ``n`` (decode rows: at least 8; prefill lengths: at least 16)."""
+    b = minimum
     while b < n:
         b *= 2
     return b
 
 
-# The largest row count at which every GEMM of the decode step gives a row
-# bitwise what it gives at 8 rows on the H100 (bf16, qwen3-0.6b's widths:
-# PERF.md).  At 128 rows and more cuBLAS runs w_down (K = 3072) without the
-# split-K it uses at 8-64 rows, which moves the row's bf16 output, so passes
-# of more than ROW_SLICE rows (speculative verify passes: K + 1 pseudo-rows
-# per row) run their row-wise work in slices of ROW_SLICE rows.  Every
-# bucket above it is a multiple of it, so each slice is a bucket-64 pass.
+# The row count of every GEMM of a decode pass on the card.  cuBLAS picks
+# its algorithm (and with it the summation order) by the row count M, and
+# on the H100 a bf16 row's output moves with it: at qwen3-0.6b's widths
+# ``w_down`` (K = 3072) drops its split-K between M = 64 and 128; at
+# deepseek-moe-16b's, ``dense0``'s FFN (``w_down`` K = 10,944) moves a row
+# between M = 8 and 16, and the experts' batched products between 32 and 64
+# (PERF.md, tests/test_torch_moe_card.py).  So a pass's row-wise work
+# (projections, FFN, logits) runs in slices of ROW_SLICE rows, and on the
+# card the last one is padded with zero rows to exactly ROW_SLICE: every
+# row of every pass (serial, batch-0, host lanes, verify passes) meets one
+# GEMM shape, and a row's output is the same in every bucket.  The GEMMs
+# stay bound by their weight reads at this M.  The CPU runs a short slice
+# as it is: there the padding would multiply the smoke models' decode
+# cost, and no CPU test's result depends on the row count.
 ROW_SLICE = 64
 
 
 def _in_row_slices(fn, *tensors):
-    """``fn`` over ``tensors`` (rows first), in slices of at most
-    ``ROW_SLICE`` rows, the results concatenated along the rows."""
+    """``fn`` over ``tensors`` (rows first), in slices of ``ROW_SLICE``
+    rows, the last one padded with zero rows to exactly ``ROW_SLICE`` on
+    the card; the results concatenated along the rows and cut back to the
+    rows given."""
     D = tensors[0].shape[0]
-    if D <= ROW_SLICE:
-        return fn(*tensors)
-    parts = [fn(*(t[i:i + ROW_SLICE] for t in tensors)) for i in range(0, D, ROW_SLICE)]
+    pad = -D % ROW_SLICE if tensors[0].is_cuda else 0
+    if pad:
+        tensors = [torch.cat([t, t.new_zeros((pad, *t.shape[1:]))]) for t in tensors]
+    parts = [fn(*(t[i:i + ROW_SLICE] for t in tensors)) for i in range(0, D + pad, ROW_SLICE)]
     if isinstance(parts[0], tuple):
-        return tuple(torch.cat(p) for p in zip(*parts))
-    return torch.cat(parts)
+        return tuple(torch.cat(p)[:D] if len(p) > 1 else p[0][:D] for p in zip(*parts))
+    return torch.cat(parts)[:D] if len(parts) > 1 else parts[0][:D]
 
 
 class PagedExecutor:
-    """Paged decode + cold prefill for the dense family."""
+    """Paged decode + cold prefill for the dense, moe and vlm families."""
 
     def __init__(self, model: DenseLM, pool: DualPool, host_attn: HostAttention,
                  *, host_lanes: int = 2):
@@ -149,8 +168,11 @@ class PagedExecutor:
         return q[:, 0], k[:, 0], v[:, 0]  # [D,H,hd], [D,KV,hd]
 
     def _layer_post(self, blk, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """Output projection and the layer's FFN (a moe layer routes each
+        row as a batch row of one token: capacity 1, and its top-k experts
+        are distinct, so no slot drops and rows stay independent)."""
         x = x + out_proj(blk.attn, o)
-        return x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, self.cfg.rms_eps))
+        return x + mlp_apply(blk, rms_norm(x, blk.ln2, self.cfg.rms_eps))
 
     @torch.inference_mode()
     def decode(self, rows: List[Request], host_flags: List[bool]) -> np.ndarray:
@@ -323,36 +345,46 @@ class PagedExecutor:
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------
-    def prefill(self, reqs: List[Request], to_host: List[bool]) -> np.ndarray:
+    def prefill(self, reqs: List[Request], to_host: List[bool],
+                extras_fn: Optional[Callable] = None) -> np.ndarray:
         """Prefill ``reqs``, scattering K/V into the pages already
         allocated on ``req.pages`` in each request's pool.  Prefix-cache hits
         (``cached_len > 0``) take the suffix prefill over their cached prefix
         (:meth:`_prefill_cached`); the rest go through the cold path as one
-        padded batch.  Returns first-token float32 logits [n, V]."""
+        padded batch, with the model inputs ``extras_fn(reqs, S)`` returns
+        for the padded length S (a vlm's ``patch_embeds``).  Returns
+        first-token float32 logits [n, V]."""
         warm = [i for i, r in enumerate(reqs) if r.cached_len > 0]
         if not warm:
-            return self._prefill_cold(reqs, to_host)
+            return self._prefill_cold(reqs, to_host, extras_fn)
         cold = [i for i, r in enumerate(reqs) if r.cached_len <= 0]
         warm_logits = self._prefill_cached([reqs[i] for i in warm], [to_host[i] for i in warm])
         out = np.zeros((len(reqs), warm_logits.shape[-1]), np.float32)
         out[warm] = warm_logits
         if cold:
-            out[cold] = self._prefill_cold([reqs[i] for i in cold], [to_host[i] for i in cold])
+            out[cold] = self._prefill_cold([reqs[i] for i in cold], [to_host[i] for i in cold],
+                                           extras_fn)
         return out
 
     @torch.inference_mode()
-    def _prefill_cold(self, reqs: List[Request], to_host: List[bool]) -> np.ndarray:
-        """Cold prefill of ``reqs`` as one padded batch (the flash prefill
-        kernel once per layer); returns first-token float32 logits [n, V]."""
+    def _prefill_cold(self, reqs: List[Request], to_host: List[bool],
+                      extras_fn: Optional[Callable] = None) -> np.ndarray:
+        """Cold prefill of ``reqs`` as one batch padded to the reference's
+        length bucket (the flash prefill kernel once per layer).  The padded
+        length is part of the result for a moe model (its capacity) and a
+        vlm (its patches need S >= their count), so it is the reference's;
+        the padding is a suffix, so a dense row's result does not depend on
+        it.  Returns first-token float32 logits [n, V]."""
         n, page = len(reqs), self.page
-        S = max(r.prefill_len for r in reqs)
+        S = _bucket(max(r.prefill_len for r in reqs), 16)
         tokens = np.zeros((n, S), np.int64)
         lens = np.zeros((n,), np.int32)
         for i, r in enumerate(reqs):
             tokens[i, : r.prefill_len] = r.prefill_tokens
             lens[i] = r.prefill_len
+        extras = extras_fn(reqs, S) if extras_fn else {}
         logits, cache = self.model.prefill(torch.from_numpy(tokens),
-                                           true_lens=torch.from_numpy(lens))
+                                           true_lens=torch.from_numpy(lens), **extras)
         k_all, v_all = cache["k"], cache["v"]  # [L, n, S, KV, hd]
         for i, (r, host) in enumerate(zip(reqs, to_host)):
             npages = len(r.pages)
@@ -412,7 +444,7 @@ class PagedExecutor:
         the prefix page tables [n, T] (T = the longest prefix's pages; the
         padding is masked by the prefix lengths)."""
         n, page = len(reqs), self.page
-        S = max(r.suffix_len for r in reqs)
+        S = _bucket(max(r.suffix_len for r in reqs), 16)  # the reference's (moe capacity)
         tokens = np.zeros((n, S), np.int64)
         suffix_lens = np.zeros((n,), np.int32)
         prefix_lens = np.zeros((n,), np.int32)
@@ -493,7 +525,7 @@ class PagedExecutor:
 
 
 # ---------------------------------------------------------------------------
-# Contiguous slot executor (ssm / hybrid; device-only)
+# Contiguous slot executor (ssm / hybrid / audio; device-only)
 # ---------------------------------------------------------------------------
 
 
@@ -539,11 +571,16 @@ class ContiguousExecutor:
 
     # -- serve ------------------------------------------------------------------
     @torch.inference_mode()
-    def prefill(self, req: Request, slot: int) -> np.ndarray:
-        """Prefill ``req`` alone and insert its cache into ``slot``; returns
-        its first-token float32 logits [V]."""
+    def prefill(self, req: Request, slot: int,
+                extras: Optional[Dict[str, np.ndarray]] = None) -> np.ndarray:
+        """Prefill ``req`` alone, with its model inputs ``extras`` (each
+        [1, ...]: an encoder-decoder's ``frames``), and insert its cache into
+        ``slot``, zero-padded to the slot's shape (an encoder memory shorter
+        than ``encoder_memory_len``; its ``enc_lens`` stays the frames
+        given); returns its first-token float32 logits [V]."""
         tokens = torch.tensor([req.prefill_tokens], dtype=torch.long, device=self.device)
-        logits, one = self.model.prefill(tokens, capacity=self.capacity)
+        inputs = {k: torch.as_tensor(v).to(self.device) for k, v in (extras or {}).items()}
+        logits, one = self.model.prefill(tokens, capacity=self.capacity, **inputs)
         self._insert(one, slot)
         return logits[0].cpu().numpy()
 

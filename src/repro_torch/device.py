@@ -26,7 +26,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16, "int32": torch.int32}
+           "float16": torch.float16, "int32": torch.int32, "int8": torch.int8}
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -136,9 +136,11 @@ def _mirror_stats(engine: NeoEngine, metrics: ServeMetrics) -> None:
 
 
 def run_trace(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,
-              max_iters: int = 100_000) -> ServeMetrics:
+              extras_fn=None, max_iters: int = 100_000) -> ServeMetrics:
     """Feed a trace into a real engine, respecting arrival times (virtual
-    clock advanced by wall-time of each iteration)."""
+    clock advanced by wall-time of each iteration).  ``extras_fn(tr)``
+    gives a trace request's model inputs beside its tokens (``submit``'s
+    ``extras``)."""
     rng = np.random.default_rng(seed)
     pending = sorted(trace, key=lambda t: t.arrival_time)
     for t in pending:
@@ -152,7 +154,9 @@ def run_trace(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,
         now = time.perf_counter() - t0
         while i < len(pending) and pending[i].arrival_time <= now:
             tr = pending[i]
-            rid = engine.submit(tr.prompt, tr.output_len, arrival_time=tr.arrival_time)
+            extras = extras_fn(tr) if extras_fn else None
+            rid = engine.submit(tr.prompt, tr.output_len, arrival_time=tr.arrival_time,
+                                extras=extras)
             records[rid] = RequestRecord(rid, tr.arrival_time, tr.prompt_len, tr.output_len)
             metrics.records.append(records[rid])
             i += 1
@@ -227,7 +231,7 @@ def run_conversations(engine: NeoEngine, trace, *, max_iters: int = 100_000) -> 
 
 
 def run_online(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,
-               max_iters: int = 100_000, on_token=None) -> ServeMetrics:
+               extras_fn=None, max_iters: int = 100_000, on_token=None) -> ServeMetrics:
     """Open-loop continuous-batching loop.
 
     Requests are OFFERED as their arrival time passes; admission control
@@ -235,6 +239,7 @@ def run_online(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,
     keeps a terminal record.  Admitted requests join the running batch
     mid-flight and depart the moment they finish.  ``on_token(rid, token)``
     is called once per newly emitted token, in emission order per request.
+    ``extras_fn`` as in :func:`run_trace`.
     """
     rng = np.random.default_rng(seed)
     pending = sorted(trace, key=lambda t: t.arrival_time)
@@ -250,7 +255,9 @@ def run_online(engine: NeoEngine, trace, *, vocab: int, seed: int = 0,
         now = time.perf_counter() - t0
         while i < len(pending) and pending[i].arrival_time <= now:
             tr = pending[i]
-            rid = engine.offer(tr.prompt, tr.output_len, arrival_time=tr.arrival_time)
+            extras = extras_fn(tr) if extras_fn else None
+            rid = engine.offer(tr.prompt, tr.output_len, arrival_time=tr.arrival_time,
+                               extras=extras)
             i += 1
             if rid is None:
                 metrics.record_rejection(tr.arrival_time, tr.prompt_len,
@@ -400,6 +407,19 @@ def draft_model_drafter(target_cfg, draft_arch: str, *, smoke: bool, seed: int,
     return DraftModelDrafter(model, vocab_size=target_cfg.vocab_size)
 
 
+def frames_extras(cfg, seed: int):
+    """``extras_fn`` for the CLI: an encoder-decoder's requests get seeded
+    frames [encoder_memory_len, d], the stubbed speech frontend's output
+    (the reference's CLI passes none, and its encoder cannot run without
+    them); every other family serves text only, as the reference's CLI
+    does (a vlm's requests carry no patches)."""
+    if cfg.encdec is None:
+        return None
+    rng = np.random.default_rng(seed + 2)
+    shape = (cfg.encdec.encoder_memory_len, cfg.d_model)
+    return lambda tr: {"frames": rng.standard_normal(shape, dtype=np.float32)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_NAMES)
@@ -532,7 +552,8 @@ def main(argv=None) -> int:
         save_trace(trace, args.save_trace)
         print(f"[serve] wrote {len(trace)} requests to {args.save_trace}")
     runner = run_online if open_loop else run_trace
-    m = runner(engine, trace, vocab=cfg.vocab_size, seed=args.seed)
+    m = runner(engine, trace, vocab=cfg.vocab_size, seed=args.seed,
+               extras_fn=frames_extras(cfg, args.seed))
     engine.close()
     summary = m.summary()
     report = None

@@ -1,30 +1,24 @@
 """Model factory of the port.
 
-The dense family (:class:`~repro_torch.models.transformer.DenseLM`), the ssm
-family (:class:`~repro_torch.models.rwkv6.RWKV6LM`) and the hybrid family
-(:class:`~repro_torch.models.zamba2.Zamba2LM`) are ported; every other family
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+:class:`~repro_torch.models.transformer.DenseLM` serves the dense, moe and
+vlm families, :class:`~repro_torch.models.rwkv6.RWKV6LM` the ssm family,
+:class:`~repro_torch.models.zamba2.Zamba2LM` the hybrid family and
+:class:`~repro_torch.models.encdec.EncDecLM` the audio (encoder-decoder)
+family.  :func:`param_count` and :func:`active_param_count` count a
+config's parameters from its shapes alone, as the reference counts its
+parameter tree.
 """
 
 from __future__ import annotations
 
 from repro_torch.config import ArchConfig
 
-_PENDING = {
-    "moe": "ROADMAP P11",
-    "vlm": "ROADMAP P11",
-    "audio": "ROADMAP P12",
-}
-_PORTED = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in _PORTED:
-        item = _PENDING.get(cfg.family)
-        if item is None:
-            raise ValueError(f"unknown family {cfg.family!r}")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet ({item})")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def get_model(cfg: ArchConfig, *, device=None):
@@ -39,6 +33,10 @@ def get_model(cfg: ArchConfig, *, device=None):
         from repro_torch.models.zamba2 import Zamba2LM
 
         return Zamba2LM(cfg, device=device)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg, device=device)
     from repro_torch.models.transformer import DenseLM
 
     return DenseLM(cfg, device=device)
@@ -70,6 +68,41 @@ def _zamba2_count(cfg: ArchConfig) -> int:
     return 2 * V * d + d + shared + cfg.num_layers * mamba
 
 
+def _encdec_count(cfg: ArchConfig) -> int:
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    enc_layer = 2 * d + _attn_count(cfg) + 3 * d * ff
+    dec_layer = enc_layer + d + _attn_count(cfg)
+    return (2 * V * d + d * d + 2 * d + cfg.encdec.encoder_layers * enc_layer
+            + cfg.num_layers * dec_layer)
+
+
+def _decoder_count(cfg: ArchConfig) -> int:
+    """DenseLM (dense / moe / vlm): embeddings, final norm, and each layer
+    of the reference's pattern (``dense0`` at ``first_dense_d_ff``, ``moe``
+    with its float32 router, routed and shared experts)."""
+    from repro_torch.models.transformer import layer_pattern
+
+    d = cfg.d_model
+    prefix, group, n_groups = layer_pattern(cfg)
+
+    def layer(kind: str) -> int:
+        n = 2 * d + _attn_count(cfg)
+        if kind == "moe":
+            moe = cfg.moe
+            n += d * moe.num_experts + 3 * moe.num_experts * d * moe.expert_d_ff
+            if moe.num_shared_experts:
+                n += 3 * d * moe.shared_d_ff * moe.num_shared_experts
+            return n
+        f = cfg.moe.first_dense_d_ff if kind == "dense0" and cfg.moe else cfg.d_ff
+        return n + 3 * d * f
+
+    total = cfg.vocab_size * d + d
+    if not cfg.tie_embeddings:
+        total += d * cfg.vocab_size
+    return (total + sum(layer(k) for k in prefix)
+            + n_groups * sum(layer(k) for k in group))
+
+
 def param_count(cfg: ArchConfig) -> int:
     """Parameter count of the model ``get_model(cfg)`` builds, from shapes
     alone (no allocation)."""
@@ -78,9 +111,32 @@ def param_count(cfg: ArchConfig) -> int:
         return _rwkv6_count(cfg)
     if cfg.family == "hybrid":
         return _zamba2_count(cfg)
-    d, f = cfg.d_model, cfg.d_ff
-    per_layer = 2 * d + _attn_count(cfg) + 3 * d * f
-    total = cfg.vocab_size * d + d + cfg.num_layers * per_layer
-    if not cfg.tie_embeddings:
-        total += d * cfg.vocab_size
+    if cfg.family == "audio":
+        return _encdec_count(cfg)
+    return _decoder_count(cfg)
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Parameters one token runs through: the reference's rule, each routed
+    expert leaf (``moe.w_gate``/``w_up``/``w_down``, not the shared ones)
+    counted at ``n * top_k // num_experts``, per stacked leaf as the
+    reference's tree holds it."""
+    total = param_count(cfg)
+    if cfg.moe is None or cfg.family not in ("dense", "moe", "vlm"):
+        return total
+    from repro_torch.models.transformer import layer_pattern
+
+    moe = cfg.moe
+    prefix, group, n_groups = layer_pattern(cfg)
+    leaf = moe.num_experts * cfg.d_model * moe.expert_d_ff  # one layer's w_gate
+
+    def active(n: int) -> int:
+        return n * moe.top_k // moe.num_experts
+
+    for kind in prefix:  # prefix layers are leaves of their own
+        if kind == "moe":
+            total += 3 * (active(leaf) - leaf)
+    for kind in group:  # group leaves are stacked over the groups
+        if kind == "moe":
+            total += 3 * (active(n_groups * leaf) - n_groups * leaf)
     return total

@@ -1,12 +1,16 @@
 """Weight bridge between the JAX package's parameter trees and the port's
-state dicts, for the three ported families.
+state dicts, for every family the port serves.
 
-* dense (``DenseLM``): the reference tree (``transformer.py:249-271`` of the
-  JAX package) holds ``embed``, ``final_norm``, an optional ``unembed``,
-  ``prefix{i}`` layers and ``blocks/sub{j}`` layers stacked on a leading
-  group axis by ``jax.vmap``; layer ``i`` of a model with ``P`` prefix
-  layers and ``r`` layers per group is ``prefix{i}`` for ``i < P`` and
-  ``blocks/sub{j}[g]`` with ``i = P + g*r + j`` otherwise.
+* dense, moe, vlm (``DenseLM``): the reference tree (``transformer.py:249-271``
+  of the JAX package) holds ``embed``, ``final_norm``, an optional
+  ``unembed``, ``prefix{i}`` layers and ``blocks/sub{j}`` layers stacked on a
+  leading group axis by ``jax.vmap``; layer ``i`` of a model with ``P``
+  prefix layers and ``r`` layers per group is ``prefix{i}`` for ``i < P``
+  and ``blocks/sub{j}[g]`` with ``i = P + g*r + j`` otherwise (deepseek: one
+  ``dense0`` prefix layer and groups of one moe layer; llama4: groups of
+  ``[moe, dense]``).  A moe layer's leaves sit under ``moe``
+  (``router``, ``w_gate [E, d, ff]``, ..., ``shared/*``), the port's
+  ``layers.{i}.moe.*``.
 * ssm (``RWKV6LM``): ``embed``, ``ln0``, ``final_norm``, ``unembed`` and
   ``blocks`` stacked on ``[L, ...]`` (``rwkv6.py:99-111``); layer ``i`` is
   ``blocks.{i}`` in the port.
@@ -14,6 +18,10 @@ state dicts, for the three ported families.
   and the Mamba2 blocks stacked as ``mamba_groups`` [G, per_group, ...] and
   ``mamba_tail`` [tail, ...] (``zamba2.py:71-87``); block ``g*per_group + j``
   and ``G*per_group + t`` are ``mamba.{i}`` in the port.
+* audio (``EncDecLM``): ``embed``, ``frame_in``, ``enc_norm``,
+  ``final_norm``, ``unembed`` and ``enc_blocks`` / ``dec_blocks`` stacked on
+  ``[L, ...]`` (``encdec.py:73-87``); layer ``i`` is ``enc_blocks.{i}`` /
+  ``dec_blocks.{i}`` in the port.
 
 Leaves arrive as numpy arrays (the caller converts jax arrays with
 ``np.asarray``); leaf layouts are the same on both sides, so the bridge only
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ArchConfig
+from repro_torch.models.transformer import layer_pattern
 
 Tree = Dict[str, Any]
 
@@ -143,6 +152,14 @@ def params_from_reference(tree: Mapping[str, Any], cfg: ArchConfig) -> Dict[str,
                                   lambda pos: f"mamba.{G * r + pos[0]}."))
         _check_layers(state, "mamba", cfg.num_layers, cfg)
         return state
+    if cfg.family == "audio":
+        for k in ("embed", "frame_in", "enc_norm", "final_norm", "unembed"):
+            state[k] = _to_tensor(tree[k])
+        for stack in ("enc_blocks", "dec_blocks"):
+            state.update(_unstack(tree[stack], 1, lambda pos, s=stack: f"{s}.{pos[0]}."))
+        _check_layers(state, "enc_blocks", cfg.encdec.encoder_layers, cfg)
+        _check_layers(state, "dec_blocks", cfg.num_layers, cfg)
+        return state
     n_prefix, r = _layout(tree)
     for k in ("embed", "final_norm", "unembed"):
         if k in tree:
@@ -157,11 +174,10 @@ def params_from_reference(tree: Mapping[str, Any], cfg: ArchConfig) -> Dict[str,
     return state
 
 
-def params_to_reference(state: Mapping[str, torch.Tensor], cfg: ArchConfig,
-                        *, n_prefix: int = 0, per_group: int = 1) -> Tree:
+def params_to_reference(state: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Tree:
     """The port's state dict -> a reference-shaped tree of numpy arrays
-    (the inverse of :func:`params_from_reference`; ``n_prefix`` and
-    ``per_group`` describe a dense tree's layer stacking)."""
+    (the inverse of :func:`params_from_reference`; a decoder's layers are
+    stacked by the reference's pattern for ``cfg``)."""
     if cfg.family == "ssm":
         layers, tree = _split_layers(state, "blocks")
         tree["blocks"] = _stack(layers, list(range(cfg.num_layers)))
@@ -177,6 +193,15 @@ def params_to_reference(state: Mapping[str, torch.Tensor], cfg: ArchConfig,
         if tail:
             tree["mamba_tail"] = _stack(layers, list(range(G * r, cfg.num_layers)))
         return tree
+    if cfg.family == "audio":
+        enc, _ = _split_layers(state, "enc_blocks")
+        dec, tree = _split_layers({k: state[k] for k in state if not k.startswith("enc_blocks.")},
+                                  "dec_blocks")
+        tree["enc_blocks"] = _stack(enc, list(range(cfg.encdec.encoder_layers)))
+        tree["dec_blocks"] = _stack(dec, list(range(cfg.num_layers)))
+        return tree
+    prefix, group, _ = layer_pattern(cfg)
+    n_prefix, per_group = len(prefix), len(group)
     layers, tree = _split_layers(state, "layers")
     for i in range(n_prefix):
         tree[f"prefix{i}"] = _nest(layers[i])

@@ -124,6 +124,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
+def mlp_params(d: int, f: int, dtype: torch.dtype, device) -> nn.ParameterDict:
+    """SwiGLU weights ``w_gate``/``w_up [d, f]``, ``w_down [f, d]``
+    (uninitialised)."""
+    return nn.ParameterDict({"w_gate": param((d, f), dtype, device),
+                             "w_up": param((d, f), dtype, device),
+                             "w_down": param((f, d), dtype, device)})
+
+
+def init_mlp(mlp: nn.ParameterDict, g: torch.Generator) -> None:
+    for n in ("w_gate", "w_up", "w_down"):
+        w = mlp[n]
+        w.data.copy_(dense_init(g, w.shape, w.shape[0], w.dtype, w.device))
+
+
 def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x: [..., d_model] -> [..., d_model]."""
     gate = x @ p["w_gate"]

@@ -1,22 +1,27 @@
-"""Decoder-only LM for the dense family (qwen3-*, yi-9b, the paper's
-LLaMa models).
+"""Decoder-only LM for the dense, moe and vlm families (qwen3-*, yi-9b, the
+paper's LLaMa models, deepseek-moe-16b, llama4-maverick, internvl2-1b).
 
 Parameters live in an ``nn.Module`` tree whose leaves keep the JAX
-package's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``w_gate [d, f]``)
-so :mod:`repro_torch.models.bridge` maps one onto the other leaf for leaf.
-Layers are an ``nn.ModuleList`` instead of the reference's ``vmap``-stacked
-groups; the serve entry points are :meth:`DenseLM.prefill` (cold prefill,
-per-layer K/V out), :meth:`DenseLM.decode` (one token over a contiguous
-cache — the dense oracle the paged engine is held to) and, for prefix-cache
-hits, :meth:`DenseLM.prefill_with_prefix` (the suffix over a cached prefix
-gathered from the device pool) and :meth:`DenseLM.prefill_with_host_prefix`
-(the suffix over a prefix the host serves in place, through a per-layer
-callback).
+package's layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``w_gate [d, f]``,
+``moe.w_gate [E, d, ff]``) so :mod:`repro_torch.models.bridge` maps one onto
+the other leaf for leaf.  Layers are an ``nn.ModuleList`` instead of the
+reference's ``vmap``-stacked groups; their kinds follow the reference's
+pattern (:func:`layer_pattern`: ``first_dense_layers`` of kind ``dense0``,
+then groups of ``["moe"] + ["dense"] * (interleave - 1)``), and every FFN
+goes through :func:`mlp_apply`.  The serve entry points are
+:meth:`DenseLM.prefill` (cold prefill, per-layer K/V out; a vlm's patch
+embeddings replace the first positions), :meth:`DenseLM.decode` (one token
+over a contiguous cache — the dense oracle the paged engine is held to;
+with ``kv_cache_dtype="int8"`` over the quantised cache) and, for
+prefix-cache hits, :meth:`DenseLM.prefill_with_prefix` (the suffix over a
+cached prefix gathered from the device pool) and
+:meth:`DenseLM.prefill_with_host_prefix` (the suffix over a prefix the host
+serves in place, through a per-layer callback).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,11 +34,15 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     embed_lookup,
+    init_mlp,
     logits_last,
+    mlp_params,
     param,
     rms_norm,
     swiglu_apply,
+    zeros_cache,
 )
+from repro_torch.models.moe import MoE, moe_apply
 
 Cache = Dict[str, torch.Tensor]
 
@@ -96,46 +105,83 @@ def init_attn(attn: nn.ParameterDict, cfg: ArchConfig, g: torch.Generator) -> No
         w.data.copy_(dense_init(g, w.shape, fan_in, w.dtype, w.device))
 
 
-def mlp_params(d: int, f: int, dtype: torch.dtype, device) -> nn.ParameterDict:
-    return nn.ParameterDict({"w_gate": param((d, f), dtype, device),
-                             "w_up": param((d, f), dtype, device),
-                             "w_down": param((f, d), dtype, device)})
+def layer_pattern(cfg: ArchConfig) -> Tuple[List[str], List[str], int]:
+    """The reference's ``DenseLM._pattern``: (prefix kinds, the kinds of
+    one repeated group, the number of groups)."""
+    if cfg.moe is None:
+        return [], ["dense"], cfg.num_layers
+    moe = cfg.moe
+    prefix = ["dense0"] * moe.first_dense_layers
+    rem = cfg.num_layers - moe.first_dense_layers
+    if moe.interleave == 1:
+        return prefix, ["moe"], rem
+    if rem % moe.interleave != 0:
+        raise ValueError("num_layers incompatible with moe.interleave")
+    return prefix, ["moe"] + ["dense"] * (moe.interleave - 1), rem // moe.interleave
 
 
-def init_mlp(mlp: nn.ParameterDict, g: torch.Generator) -> None:
-    for n in ("w_gate", "w_up", "w_down"):
-        w = mlp[n]
-        w.data.copy_(dense_init(g, w.shape, w.shape[0], w.dtype, w.device))
+def quantize_kv(k: torch.Tensor, v: torch.Tensor):
+    """[..., KV, hd] -> int8 codes and per-(position, head) float32 scales
+    ``max|x| / 127 + 1e-8`` (round half to even, as ``jnp.round``)."""
+    def q8(x):
+        x = x.float()
+        scale = x.abs().amax(dim=-1) / 127.0 + 1e-8
+        return torch.round(x / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
+
+    kq, ks = q8(k)
+    vq, vs = q8(v)
+    return kq, vq, ks, vs
+
+
+def mlp_apply(blk: "Block", x: torch.Tensor) -> torch.Tensor:
+    """The layer's FFN: SwiGLU, or the MoE for a ``moe`` layer.  A 2-D
+    ``x`` [B, d] (a decode pass) goes through the MoE as B rows of one
+    token each, as the reference's decode does."""
+    if blk.kind != "moe":
+        return swiglu_apply(blk.mlp, x)
+    if x.ndim == 2:
+        return moe_apply(blk.moe, x[:, None, :], blk.moe.cfg)[0][:, 0]
+    return moe_apply(blk.moe, x, blk.moe.cfg)[0]
 
 
 class Block(nn.Module):
-    """One decoder layer: RMSNorm → GQA attention → RMSNorm → SwiGLU."""
+    """One decoder layer: RMSNorm → GQA attention → RMSNorm → FFN, where the
+    FFN is a SwiGLU (kinds ``dense`` and ``dense0``, the latter at
+    ``first_dense_d_ff``) or the MoE (kind ``moe``)."""
 
-    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+    def __init__(self, cfg: ArchConfig, kind: str, dtype: torch.dtype, device):
         super().__init__()
         f32 = torch.float32
+        self.kind = kind
         self.ln1 = param((cfg.d_model,), f32, device)
         self.ln2 = param((cfg.d_model,), f32, device)
         self.attn = attn_params(cfg, dtype, device)
-        self.mlp = mlp_params(cfg.d_model, cfg.d_ff, dtype, device)
+        if kind == "moe":
+            self.moe = MoE(cfg.d_model, cfg.moe, dtype, device)
+        else:
+            width = cfg.moe.first_dense_d_ff if kind == "dense0" and cfg.moe else cfg.d_ff
+            self.mlp = mlp_params(cfg.d_model, width, dtype, device)
 
     def init(self, cfg: ArchConfig, g: torch.Generator) -> None:
         for n in ("ln1", "ln2"):
             getattr(self, n).data.fill_(1.0)
         init_attn(self.attn, cfg, g)
-        init_mlp(self.mlp, g)
+        if self.kind == "moe":
+            self.moe.init(g)
+        else:
+            init_mlp(self.mlp, g)
 
     def full(self, cfg: ArchConfig, x: torch.Tensor, impl: str = "kernel"
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Causal full-sequence layer; returns (x, roped k, v)."""
         o, k, v = attn_full(self.attn, cfg, rms_norm(x, self.ln1, cfg.rms_eps), impl=impl)
         x = x + o
-        x = x + swiglu_apply(self.mlp, rms_norm(x, self.ln2, cfg.rms_eps))
+        x = x + mlp_apply(self, rms_norm(x, self.ln2, cfg.rms_eps))
         return x, k, v
 
 
 class DenseLM(nn.Module):
-    """Decoder-only LM of the dense family.
+    """Decoder-only LM of the dense, moe and vlm families.
 
     Weights are allocated uninitialised: call :meth:`init` (random, from a
     ``torch.Generator``) or load them (``load_state_dict``, or
@@ -143,12 +189,11 @@ class DenseLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device=None):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe is not None or cfg.modality is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: DenseLM serves the dense family only, not {cfg.family!r} "
-                "(ROADMAP P11 ports moe/vlm; models.api.get_model builds ssm/hybrid)")
-        if cfg.kv_cache_dtype:
-            raise NotImplementedError("int8 KV cache is not ported yet (ROADMAP P11)")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.name}: DenseLM serves the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
+        if cfg.kv_cache_dtype not in ("", "int8"):
+            raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r}")
         self.cfg = cfg
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.param_dtype)
@@ -156,7 +201,9 @@ class DenseLM(nn.Module):
         self.final_norm = param((cfg.d_model,), torch.float32, dev)
         if not cfg.tie_embeddings:
             self.unembed = param((cfg.d_model, cfg.vocab_size), dtype, dev)
-        self.layers = nn.ModuleList(Block(cfg, dtype, dev) for _ in range(cfg.num_layers))
+        prefix, group, n_groups = layer_pattern(cfg)
+        self.layers = nn.ModuleList(Block(cfg, kind, dtype, dev)
+                                    for kind in prefix + group * n_groups)
 
     @property
     def device(self) -> torch.device:
@@ -193,24 +240,61 @@ class DenseLM(nn.Module):
         return logits_last(rms_norm(x, self.final_norm, self.cfg.rms_eps),
                            self.unembed_matrix())
 
+    def _embed_prompt(self, tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """The reference's ``_embed_tokens``: a vlm's ``patch_embeds``
+        [B, P, d] replace the first P positions, in the activation dtype,
+        whenever the (padded) prompt holds at least P positions."""
+        x = self.embed_tokens(tokens.to(self.device))
+        P = self.cfg.modality.num_embeds if self.cfg.modality is not None else 0
+        if P and patch_embeds is not None and tokens.shape[1] >= P:
+            pe = torch.as_tensor(patch_embeds).to(self.device, self.act_dtype)
+            x = torch.cat([pe, x[:, P:]], dim=1)
+        return x
+
+    # -- serve: cache --------------------------------------------------------
+    def cache_shape(self, batch: int, capacity: int):
+        """{name: (shape, dtype name, logical axes)} of the contiguous cache:
+        ``k``/``v`` [L, B, capacity, KV, hd] in the activation dtype, or in
+        int8 with float32 ``k_scale``/``v_scale`` [L, B, capacity, KV] when
+        ``kv_cache_dtype == "int8"``, and ``lens`` [B]."""
+        cfg = self.cfg
+        kv = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+        axes = ("layers", "batch", "kv_seq", "kv_heads", None)
+        lens = {"lens": ((batch,), "int32", ("batch",))}
+        if cfg.kv_cache_dtype == "int8":
+            sc = kv[:-1]
+            return {"k": (kv, "int8", axes), "v": (kv, "int8", axes),
+                    "k_scale": (sc, "float32", axes[:-1]),
+                    "v_scale": (sc, "float32", axes[:-1]), **lens}
+        return {"k": (kv, cfg.activation_dtype, axes),
+                "v": (kv, cfg.activation_dtype, axes), **lens}
+
+    def init_cache(self, batch: int, capacity: int) -> Cache:
+        return zeros_cache(self.cache_shape(batch, capacity), self.device)
+
     # -- serve: prefill ------------------------------------------------------
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
                 true_lens: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None,
                 impl: str = "kernel") -> Tuple[torch.Tensor, Cache]:
         """tokens: [B, S] -> (next-token logits [B, V], cache).
 
         ``true_lens`` [B] marks each row's unpadded length when prompts are
         packed into one padded batch: logits are taken at ``true_lens - 1``.
         Padding must be a suffix (causal attention keeps valid positions
-        exact).  The cache holds ``k``/``v`` [L, B, capacity, KV, hd] and
-        ``lens`` [B].  Attention runs the flash prefill kernel once per layer
-        (``impl="kernel"``) or its plain version (``impl="plain"``, for
-        oracles).
+        exact); a moe layer's capacity follows the padded S.  A vlm's
+        ``patch_embeds`` [B, P, d] replace the first P positions when
+        S >= P.  The cache holds ``k``/``v`` [L, B, capacity, KV, hd] (int8
+        codes plus ``k_scale``/``v_scale`` with ``kv_cache_dtype="int8"``)
+        and ``lens`` [B].  Attention runs the flash prefill kernel once per
+        layer (``impl="kernel"``) or its plain version (``impl="plain"``,
+        for oracles).
         """
         B, S = tokens.shape
         capacity = capacity or S
-        x = self.embed_tokens(tokens.to(self.device))
+        x = self._embed_prompt(tokens, patch_embeds)
         ks, vs = [], []
         for blk in self.layers:
             x, k, v = blk.full(self.cfg, x, impl)
@@ -223,6 +307,10 @@ class DenseLM(nn.Module):
             pad = (0, 0, 0, 0, 0, capacity - S)
             k_all = torch.nn.functional.pad(k_all, pad)
             v_all = torch.nn.functional.pad(v_all, pad)
+        if self.cfg.kv_cache_dtype == "int8":
+            kq, vq, k_scale, v_scale = quantize_kv(k_all, v_all)
+            return logits, {"k": kq, "v": vq, "k_scale": k_scale, "v_scale": v_scale,
+                            "lens": lens}
         return logits, {"k": k_all, "v": v_all, "lens": lens}
 
     def _row_lens(self, B: int, S: int, true_lens: Optional[torch.Tensor]) -> torch.Tensor:
@@ -252,7 +340,7 @@ class DenseLM(nn.Module):
             h = rms_norm(x, blk.ln1, cfg.rms_eps)
             q, k, v = project_qkv(blk.attn, cfg, h, positions)
             x = x + out_proj(blk.attn, attend(i, q, k, v).to(x.dtype))
-            x = x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps))
+            x = x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps))
             ks.append(k)
             vs.append(v)
         return self._logits_at(x, self._row_lens(B, S, true_lens)), torch.stack(ks), torch.stack(vs)
@@ -301,19 +389,32 @@ class DenseLM(nn.Module):
         """tokens: [B] -> (logits [B, V], cache).  Writes each row's new K/V
         at position ``lens`` in place (the reference returns a new cache;
         the port updates in place to save a copy of the whole cache) and
-        attends over ``lens + 1`` tokens."""
+        attends over ``lens + 1`` tokens.  Over an int8 cache the new K/V
+        are quantised, and each layer attends over its cache dequantised to
+        the activation dtype (the reference's ``attn_decode_int8``)."""
         cfg = self.cfg
         lens = cache["lens"]
         B = tokens.shape[0]
         rows = torch.arange(B, device=self.device)
         pos = lens.long().clamp(0, cache["k"].shape[2] - 1)
+        int8 = cfg.kv_cache_dtype == "int8"
         x = self.embed_tokens(tokens.to(self.device))
         for i, blk in enumerate(self.layers):
             h = rms_norm(x, blk.ln1, cfg.rms_eps)
             q, k, v = project_qkv(blk.attn, cfg, h[:, None, :], lens[:, None])
-            cache["k"][i, rows, pos] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][i, rows, pos] = v[:, 0].to(cache["v"].dtype)
-            o = attn_lib.decode_attention(q[:, 0], cache["k"][i], cache["v"][i], lens + 1)
+            if int8:
+                kq, vq, k_scale, v_scale = quantize_kv(k[:, 0], v[:, 0])
+                for name, new in (("k", kq), ("v", vq), ("k_scale", k_scale),
+                                  ("v_scale", v_scale)):
+                    cache[name][i, rows, pos] = new
+                dt = self.act_dtype
+                kc = cache["k"][i].to(dt) * cache["k_scale"][i][..., None].to(dt)
+                vc = cache["v"][i].to(dt) * cache["v_scale"][i][..., None].to(dt)
+            else:
+                cache["k"][i, rows, pos] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][i, rows, pos] = v[:, 0].to(cache["v"].dtype)
+                kc, vc = cache["k"][i], cache["v"][i]
+            o = attn_lib.decode_attention(q[:, 0], kc, vc, lens + 1)
             x = x + out_proj(blk.attn, o)
-            x = x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps))
+            x = x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps))
         return self.final_logits(x), {**cache, "lens": lens + 1}

@@ -32,7 +32,9 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     embed_lookup,
+    init_mlp,
     logits_last,
+    mlp_params,
     param,
     rms_norm,
     swiglu_apply,
@@ -43,8 +45,6 @@ from repro_torch.models.transformer import (
     attn_full,
     attn_params,
     init_attn,
-    init_mlp,
-    mlp_params,
     out_proj,
     project_qkv,
 )

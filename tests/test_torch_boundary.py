@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -32,6 +33,7 @@ for n in names:
     importlib.import_module(n)
 for n in ("repro_torch.core.transfer", "repro_torch.core.prefix_cache",
           "repro_torch.core.spec", "repro_torch.serving.simulator",
+          "repro_torch.models.moe", "repro_torch.models.encdec",
           "repro_torch.kernels.flash_prefill.ops",
           "repro_torch.kernels.flash_prefill.ref", "repro_torch.obs",
           "repro_torch.obs.tracer", "repro_torch.obs.reconcile", "repro_torch.obs.validate"):
@@ -90,14 +92,36 @@ def test_entry_points_refuse_cpu_fallback(no_cuda):
 
 @pytest.mark.parametrize("arch,option,item", [
     ("qwen3-0.6b", dict(pipeline=False, tp=2), "P13"),
-    ("deepseek-moe-16b", dict(pipeline=False), "P11"),
+    ("deepseek-moe-16b", dict(pipeline=False, tp=2), "P13"),
 ])
 def test_unported_engine_options_raise(arch, option, item):
     """What the engine does not run yet raises, naming its ROADMAP item:
-    tensor parallelism, and the moe family (speculative decoding, refused
-    here until it was ported, builds: test_spec_decode_engine_builds_on_cpu)."""
+    tensor parallelism, on the dense and the moe family alike (every family
+    is ported: test_every_family_builds_on_cpu; speculative decoding,
+    refused here until it was ported, builds:
+    test_spec_decode_engine_builds_on_cpu)."""
     with pytest.raises(NotImplementedError, match=item):
         NeoEngine(get_smoke_config(arch), EngineConfig(**option), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "internvl2-1b", "seamless-m4t-medium"])
+def test_every_family_builds_on_cpu(arch):
+    """The moe, vlm and audio families (refused until they were ported)
+    build their engine (paged for moe and vlm, contiguous for audio) and
+    serve a request; nothing in the port names a family as unported."""
+    cfg = get_smoke_config(arch)
+    eng = NeoEngine(cfg, EngineConfig(device_pool_pages=8, host_pool_pages=16,
+                                      max_batch_tokens=64), device="cpu")
+    try:
+        assert eng.paged == (cfg.family != "audio")
+        extras = ({"frames": np.zeros((4, cfg.d_model), np.float32)}
+                  if cfg.family == "audio" else None)
+        rid = eng.submit([1, 2, 3, 4, 5], 2, extras=extras)
+        assert len(eng.run_until_done(50)[rid]) == 2
+    finally:
+        eng.close()
+    src = "\n".join(f.read_text() for f in PORT.rglob("*.py"))
+    assert "ROADMAP P11" not in src and "ROADMAP P12" not in src
 
 
 def test_spec_decode_engine_builds_on_cpu():

@@ -470,9 +470,9 @@ def test_shrunken_match_defers_instead_of_token_overrun(closing):
     batches = []
     orig = eng.executor.prefill
 
-    def recording(reqs, to_host):
+    def recording(reqs, to_host, extras_fn=None):
         batches.append(sum(r.suffix_len for r in reqs))
-        return orig(reqs, to_host)
+        return orig(reqs, to_host, extras_fn)
 
     eng.executor.prefill = recording
     eng.run_until_done(200)

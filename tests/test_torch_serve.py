@@ -233,14 +233,27 @@ def test_cli_prefix_cache_full_width_schedule_matches_reference(monkeypatch, cap
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], "P13"),
     (["--tp", "2", "--spec-decode"], "P13"),
-    (["--arch", "deepseek-moe-16b"], "P11"),
+    (["--arch", "deepseek-moe-16b", "--tp", "2"], "P13"),
 ])
 def test_cli_refuses_unported_options(flags, item):
     """What the port does not serve yet raises, naming its ROADMAP item
     (``--spec-decode`` and ``--spec-k``, refused here until speculative
-    decoding was ported, run: test_cli_spec_decode_*)."""
+    decoding was ported, run: test_cli_spec_decode_*; the moe family,
+    refused until it was ported, serves:
+    test_cli_serves_moe_vlm_and_audio_on_cpu)."""
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "internvl2-1b", "seamless-m4t-medium"])
+def test_cli_serves_moe_vlm_and_audio_on_cpu(arch, capsys):
+    """The CLI serves the moe and vlm families (paged; the vlm text only,
+    as the reference's CLI) and the audio family (contiguous, each request
+    with the seeded frames of the stubbed frontend) to the end."""
+    rc = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--n", "3",
+                     "--device-pages", "16", "--host-pages", "64", "--max-batch-tokens", "128"])
+    summary = _summary(capsys.readouterr().out)
+    assert rc == 0 and summary["terminal_counts"]["finished"] == 3
 
 
 SPEC_ARGS = ["--arch", ARCH, "--smoke", "--device", "cpu", "--trace", "osc", "--n", "12",

@@ -109,6 +109,23 @@ Phases, each of which fails the run by raising:
              encoder + 12 causal decoder layers), no other kernel; then fp32,
              every token held to the model's own plain prefill plus
              teacher-forced decode;
+3g. tp      — gather-TP tensor parallelism on the pipelined paged engine,
+             every shard on cuda:0 (``shard_devices``), perf model frozen:
+             K1 and K2 first held to their plain versions at the shard
+             shapes (8/4, 4/2 and 20/4 query/KV heads, hd 128) and timed;
+             (a) full-width qwen3-0.6b bf16 at TP 1, 2 and 4, the serve
+             phase's 8 requests, pools 512/512 (every row on the card):
+             tokens of TP 2 and 4 = TP 1's bitwise, K1 = tp x 28 x decode
+             passes, K2 = tp x 28 x prefill calls; (b) TP=2 with pools
+             64/512: fp32 held to the dense oracle; bf16 traced, the
+             per-shard copy streams partitioning the swaps exactly,
+             obs.validate ok with hostattn-b0-s0/-s1 and copy-out0/1 tracks,
+             reconcile ok; bf16 TP=1 on the same trace recorded beside it
+             (the TP perf model prices two cards, so plans may differ);
+             (c) qwen3-14b bf16 at TP=2 = TP=1 (4 requests of 256-512
+             tokens, 16 outputs), peak memory recorded; (d) ``serve --tp``
+             beyond the card count raises the device-count ValueError.
+             One card says nothing of TP's speed: its shards share one H100;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
@@ -2087,6 +2104,277 @@ def p11_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: gather-TP tensor parallelism, every shard on cuda:0
+# ---------------------------------------------------------------------------
+
+TP_SHARD_HEADS = {"tp2": (8, 4), "tp4": (4, 2), "qwen3_14b_tp2": (20, 4)}  # H/tp, KV/tp
+TP_BIG = "qwen3-14b"
+TP_BIG_REQUESTS, TP_BIG_OUTPUT = 4, 16
+
+
+def tp_kernel_phase(torch):
+    """K1 and K2 at 3g's shard shapes (query/KV heads per shard: 8/4 and 4/2
+    for qwen3-0.6b at tp 2 and 4, 20/4 for qwen3-14b at tp 2; hd 128),
+    against their plain versions in fp32 and bf16, then timed in bf16 (L2
+    flushed) beside SDPA and their bound: K1 over 8 rows of the serve
+    cell's lengths, K2 over one 512-token prompt."""
+    import random
+
+    from repro_torch.kernels.paged_decode.ops import paged_decode_attention as kern
+    from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+
+    rng = random.Random(20)
+    lens = [rng.randint(257, 800) for _ in range(8)]  # prompts 256-768 + 32 outputs
+    decode_worst = {}
+    for label, (H, KV) in TP_SHARD_HEADS.items():
+        for dt_name in ("float32", "bfloat16"):
+            q, kp, vp, bt, ln = make_case(torch, 8, H, KV, 128, 16, lens,
+                                          getattr(torch, dt_name), seed=60 + H)
+            out = kern(q, kp, vp, bt, ln)
+            torch.cuda.synchronize()
+            err = _close(torch, "paged_decode", dt_name, f"shard {label}",
+                         [("o", out, paged_decode_ref(q, kp, vp, bt, ln))])
+            decode_worst[dt_name] = max(decode_worst.get(dt_name, 0.0), err)
+            log(f"[kernel] paged_decode {dt_name} shard {label} B=8 H={H} KV={KV} hd=128 "
+                f"lens={lens} max_abs_err={err:.3e} tol={TOL[dt_name]} ok")
+    flash_worst = flash_sweep(torch, [dict(B=1, S=512, H=H, KV=KV, hd=128, causal=True,
+                                           window=0) for H, KV in TP_SHARD_HEADS.values()],
+                              seed=600)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    timed = {}
+    for label, (H, KV) in TP_SHARD_HEADS.items():
+        timed[f"decode_{label}"] = decode_time(torch, flush, f"shard {label}", 8, H, KV, 128,
+                                               lens)
+        timed[f"prefill_{label}"] = flash_time(torch, flush, f"shard {label}", 1, 512, H, KV,
+                                               128, 0)
+    del flush
+    return timed, decode_worst, flash_worst
+
+
+def tp_run(torch, cfg, trace, tp, card, *, device_pages, host_pages, tracing=False, label=""):
+    """``trace`` through ``launch.serve.run_trace`` on the pipelined paged
+    engine at ``tp`` shards, every shard on cuda:0 (``shard_devices``), the
+    perf model frozen, counted by :func:`drive`: K1 = tp x layers x decode
+    passes (with merges), K2 = tp x layers x prefill calls.  Returns
+    (engine, summary with the peak memory)."""
+    from repro_torch.config import EngineConfig
+    from repro_torch.core.engine import NeoEngine
+    from repro_torch.launch.serve import run_trace
+
+    ecfg = EngineConfig(device_pool_pages=device_pages, host_pool_pages=host_pages,
+                        policy="neo", pipeline=True, hw_profile="h100_sxm", seed=0,
+                        ewma_alpha=0.0, tp=tp, tracing=tracing)
+    torch.cuda.reset_peak_memory_stats()
+    engine = NeoEngine(cfg, ecfg, device="cuda",
+                       shard_devices=["cuda:0"] * tp if tp > 1 else None)
+    m, launched, calls, _, _ = drive(engine, trace, lambda e, t: run_trace(
+        e, t, vocab=cfg.vocab_size))
+    engine.close()
+    done = [r for r in engine.requests.values() if r.state.name == "FINISHED"]
+    if len(done) != len(trace):
+        raise AssertionError(f"tp phase {label}: only {len(done)}/{len(trace)} finished")
+    L = cfg.num_layers
+    passes = calls["decode"] + calls["decode_batch0"]
+    want = {"paged_decode": tp * L * passes, "flash_prefill": tp * L * calls["prefill"],
+            "rwkv6_scan": 0, "mamba2_ssd": 0}
+    got = {k: launched[k] for k in want}
+    if got != want or passes == 0 or calls["prefill"] == 0:
+        raise AssertionError(f"tp phase {label}: launches {got} != {want} ({tp} shards x {L} "
+                             f"layers x {calls})")
+    if not 0 < launched["paged_decode_merge"] <= launched["paged_decode"]:
+        raise AssertionError(f"tp phase {label}: merge launches "
+                             f"{launched['paged_decode_merge']}")
+    summary = serve_summary(cfg, engine, m, launched, calls, card)
+    ts = engine.transfer.stats
+    summary.update(run=label, tp=tp, shard_devices=[str(d) for d in engine.shard_devices],
+                   peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9,
+                   bytes_by_stream=dict(sorted(ts.bytes_by_stream.items())))
+    return engine, summary
+
+
+def tp_compare(runs, base):
+    """(tokens equal to ``base``'s, tokens, plans equal) for each run."""
+    out = {}
+    for key, (tokens, plans, _) in runs.items():
+        b_tokens, b_plans, _ = runs[base]
+        same = sum(a == b for rid, t in tokens.items() for a, b in zip(t, b_tokens[rid]))
+        out[key] = (same, sum(map(len, b_tokens.values())), plans == b_plans)
+    return out
+
+
+def tp_phase_a(torch, card):
+    """(a) qwen3-0.6b bf16 at TP 1, 2 and 4, pools 512/512 (every row on the
+    card), the serve phase's 8 requests: tokens of TP 2 and 4 = TP 1's
+    bitwise (the reference's claim), K1 / K2 launched tp times per layer."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-0.6b")
+    trace = make_trace(8, cfg.vocab_size)
+    runs = {}
+    for tp in (1, 2, 4):
+        engine, summary = tp_run(torch, cfg, trace, tp, card, device_pages=512, host_pages=512,
+                                 label=f"a: tp={tp}")
+        if engine.stats.offloaded_decodes or engine.pool.swap_bytes:
+            raise AssertionError(f"tp phase (a) tp={tp}: a row left the card "
+                                 f"({engine.stats.offloaded_decodes} host decodes)")
+        runs[tp] = (spec_tokens(engine), list(engine.stats.plans), summary)
+        del engine
+        free_card(torch)
+    for tp, (same, total, plans) in tp_compare(runs, 1).items():
+        runs[tp][2].update(tokens_equal_to_tp1=same, tokens=total, plans_equal_to_tp1=plans)
+        log(json.dumps({"tp": runs[tp][2]}))
+    for tp, (same, total, _) in tp_compare(runs, 1).items():
+        if same != total or total == 0:
+            raise AssertionError(f"tp phase (a): tp={tp} gives {same} of {total} bf16 tokens "
+                                 "of tp=1")
+    return {tp: run[2] for tp, run in runs.items()}
+
+
+def tp_phase_b(torch, card):
+    """(b) qwen3-0.6b at TP=2 with the serve cell's pools 64/512 (neo
+    offloads): fp32, every token the dense oracle's argmax or a near-tie;
+    bf16 traced, the per-shard copy streams partition the run's own swap
+    totals exactly, obs.validate accepts the export with per-shard
+    host-attention and copy tracks, reconcile() passes; bf16 TP=1 on the
+    same trace for the record (TP=2's perf model prices two cards, so its
+    plans, and with them the rows' residency, may differ)."""
+    from repro_torch.configs import get_config
+    from repro_torch.obs import reconcile
+    from repro_torch.obs.validate import validate
+
+    cfg = get_config("qwen3-0.6b")
+    trace = make_trace(8, cfg.vocab_size)
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    out = {}
+    engine, s32 = tp_run(torch, cfg32, trace, 2, card, device_pages=64, host_pages=512,
+                         label="b: fp32 tp=2")
+    if not (engine.stats.offloaded_decodes > 0 and engine.pool.swap_bytes > 0):
+        raise AssertionError(f"tp phase (b) fp32: nothing offloaded ({s32['modes']})")
+    s32["parity"] = dense_oracle_parity(torch, engine.model, [
+        (rid, r.prompt, list(r.out_tokens)) for rid, r in sorted(engine.requests.items())])
+    out["fp32"] = s32
+    log(json.dumps({"tp": s32}))
+    del engine
+    free_card(torch)
+
+    runs = {}
+    for tp, tracing in ((2, True), (1, False)):
+        engine, summary = tp_run(torch, cfg, trace, tp, card, device_pages=64, host_pages=512,
+                                 tracing=tracing, label=f"b: bf16 tp={tp}"
+                                 + (", traced" if tracing else ""))
+        if tracing:
+            ts, tr = engine.transfer.stats, engine.tracer
+            st = ts.bytes_by_stream
+            outs = {k: v for k, v in st.items() if k.startswith("out")}
+            ins = {k: v for k, v in st.items() if k.startswith("in")}
+            if not (set(outs) == {"out0", "out1"} and ts.bytes_out > 0
+                    and sum(outs.values()) == ts.bytes_out == engine.stats.swap_out_bytes
+                    and sum(ins.values()) == ts.bytes_in == engine.stats.swap_in_bytes
+                    and outs["out0"] == outs["out1"]
+                    and len(set(ins.values())) <= 1 and set(ins) <= {"in0", "in1"}):
+                raise AssertionError(f"tp phase (b): the stream split {st} does not partition "
+                                     f"the swaps ({ts.bytes_out} out, {ts.bytes_in} in)")
+            if tr.dropped:
+                raise AssertionError(f"tp phase (b): the tracer dropped {tr.dropped} events")
+            rep = reconcile(tr, engine.stats)
+            if not rep.ok:
+                raise AssertionError(f"tp phase (b): reconcile failed {rep.failed()}")
+            path = os.path.join(ROOT, "build", "chip_smoke_trace_tp2.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tr.export_chrome(path)
+            fails = validate(path, expect_copy=True)
+            need = {"hostattn-b0-s0", "hostattn-b0-s1", "copy-out0", "copy-out1"}
+            if fails or not need <= set(tr.tracks()):
+                raise AssertionError(f"tp phase (b): obs.validate {fails}, tracks "
+                                     f"{tr.tracks()}")
+            summary.update(traced=True, tracks=tr.tracks(), events_recorded=tr.total,
+                           reconcile_checks=len(rep.checks), reconcile_ok=rep.ok,
+                           validate_fails=fails)
+        runs[tp] = (spec_tokens(engine), list(engine.stats.plans), summary)
+        del engine
+        free_card(torch)
+    same, total, plans = tp_compare(runs, 1)[2]
+    runs[2][2].update(tokens_equal_to_tp1=same, tokens=total, plans_equal_to_tp1=plans)
+    for tp in (2, 1):
+        log(json.dumps({"tp": runs[tp][2]}))
+    out["bf16_tp2"], out["bf16_tp1"] = runs[2][2], runs[1][2]
+    return out
+
+
+def tp_phase_c(torch, card):
+    """(c) qwen3-14b bf16 at TP=2 against TP=1: 4 prompts of 256-512
+    tokens, 16 outputs, pools 256/64 (every row on the card); tokens equal
+    (asserted) and each run's peak memory (the unsharded weights beside the
+    shards' column copies at TP=2) recorded."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.traces import TraceRequest
+
+    cfg = get_config(TP_BIG)
+    rng = np.random.default_rng(6)
+    trace = []
+    for _ in range(TP_BIG_REQUESTS):
+        n = int(rng.integers(256, 513))
+        trace.append(TraceRequest(0.0, n, TP_BIG_OUTPUT,
+                                  prompt=list(map(int, rng.integers(1, cfg.vocab_size, n)))))
+    runs = {}
+    for tp in (1, 2):
+        engine, summary = tp_run(torch, cfg, trace, tp, card, device_pages=256, host_pages=64,
+                                 label=f"c: {TP_BIG} tp={tp}")
+        if engine.stats.offloaded_decodes or engine.pool.swap_bytes:
+            raise AssertionError(f"tp phase (c) tp={tp}: a row left the card")
+        runs[tp] = (spec_tokens(engine), list(engine.stats.plans), summary)
+        del engine
+        free_card(torch)
+    same, total, plans = tp_compare(runs, 1)[2]
+    runs[2][2].update(tokens_equal_to_tp1=same, tokens=total, plans_equal_to_tp1=plans)
+    for tp in (1, 2):
+        log(json.dumps({"tp": runs[tp][2]}))
+    if same != total or total == 0:
+        raise AssertionError(f"tp phase (c): tp=2 gives {same} of {total} bf16 tokens of tp=1")
+    return {tp: run[2] for tp, run in runs.items()}
+
+
+def tp_phase_d():
+    """(d) ``serve --tp 2`` with no shard devices on a one-card machine
+    raises the reference's device-count ValueError (no fallback to the CPU
+    or to fewer shards); returns its message."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    n = torch.cuda.device_count()
+    try:
+        serve.main(["--arch", "qwen3-0.6b", "--tp", str(n + 1), "--n", "1"])
+    except ValueError as e:
+        if f"exceeds the {n} available" not in str(e):
+            raise AssertionError(f"tp phase (d): unexpected refusal {e}") from e
+        return str(e)
+    raise AssertionError(f"tp phase (d): serve --tp {n + 1} on {n} card(s) did not refuse")
+
+
+def tp_phase(torch, card):
+    """Phase 3g: K1/K2 at the shard shapes, then (a)-(d)."""
+    t0 = time.perf_counter()
+    kern = tp_kernel_phase(torch)
+    a = tp_phase_a(torch, card)
+    b = tp_phase_b(torch, card)
+    c = tp_phase_c(torch, card)
+    d = tp_phase_d()
+    log(f"[tp] (a) qwen3-0.6b bf16 tokens of tp=1: tp=2 {a[2]['tokens_equal_to_tp1']}, tp=4 "
+        f"{a[4]['tokens_equal_to_tp1']} of {a[1]['tokens']} (asserted); makespan tp=1/2/4 "
+        + " / ".join(f"{a[tp]['makespan_s']:.3f}" for tp in (1, 2, 4)) + " s; (b) fp32 tp=2 "
+        f"parity {b['fp32']['parity']['exact']}+{b['fp32']['parity']['near_ties']}/"
+        f"{b['fp32']['parity']['tokens']}, bf16 tp=2 vs tp=1 {b['bf16_tp2']['tokens_equal_to_tp1']}"
+        f"/{b['bf16_tp2']['tokens']} (plans equal: {b['bf16_tp2']['plans_equal_to_tp1']}; "
+        f"recorded); (c) {TP_BIG} tp=2 = tp=1 {c[2]['tokens_equal_to_tp1']}/{c[2]['tokens']}, "
+        f"peak {c[1]['peak_mem_GB']:.1f} / {c[2]['peak_mem_GB']:.1f} GB; (d) {d}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return kern, a, b, c
+
+
+# ---------------------------------------------------------------------------
 # the contiguous paths: rwkv6-7b and zamba2-7b
 # ---------------------------------------------------------------------------
 
@@ -2328,6 +2616,10 @@ def main() -> int:
     prefix_a, prefix_b, _ = prefix_phase(torch, cfg, card)
     spec_a, _, spec_c, _ = spec_phase(torch, card)
     p11 = p11_phase(torch, card)
+    tp_t, tp_a, tp_b, tp_c = tp_phase(torch, card)
+    for dt_name in ("float32", "bfloat16"):
+        worst[dt_name] = max(worst[dt_name], tp_t[1][dt_name])
+        flash_worst[dt_name] = max(flash_worst[dt_name], tp_t[2][dt_name])
     ssm = {}
     for arch in ("rwkv6-7b", "zamba2-7b"):
         summary, ssm_trace, tokens, _, _ = ssm_serve_phase(torch, get_config(arch), "cuda")
@@ -2376,6 +2668,10 @@ def main() -> int:
         "launches_spec_path_draft_model": spec_c["kernel_launches"]["paged_decode"],
         "launches_moe_path": p11["moe_pipelined"]["kernel_launches"]["paged_decode"],
         "launches_vlm_path": p11["vlm"]["kernel_launches"]["paged_decode"],
+        "launches_tp_path": {f"qwen3-0.6b tp={tp}": tp_a[tp]["kernel_launches"]["paged_decode"]
+                             for tp in (1, 2, 4)},
+        "launches_tp_path_offload": tp_b["bf16_tp2"]["kernel_launches"]["paged_decode"],
+        "launches_tp_path_qwen3_14b": tp_c[2]["kernel_launches"]["paged_decode"],
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -2391,6 +2687,8 @@ def main() -> int:
         "qwen3_14b": spec_t["decode_qwen3_14b"],
         "deepseek_moe_16b": p11_t["decode_deepseek"],
         "internvl2_1b": p11_t["decode_internvl2"],
+        "tp_shards": {k[len("decode_"):]: v for k, v in tp_t[0].items()
+                      if k.startswith("decode_")},
     }, {
         "name": "flash_prefill",
         "route": "cuda",
@@ -2406,6 +2704,10 @@ def main() -> int:
         "launches_moe_path": p11["moe_pipelined"]["kernel_launches"]["flash_prefill"],
         "launches_vlm_path": p11["vlm"]["kernel_launches"]["flash_prefill"],
         "launches_audio_path": p11["audio"]["kernel_launches"]["flash_prefill"],
+        "launches_tp_path": {f"qwen3-0.6b tp={tp}": tp_a[tp]["kernel_launches"]["flash_prefill"]
+                             for tp in (1, 2, 4)},
+        "launches_tp_path_offload": tp_b["bf16_tp2"]["kernel_launches"]["flash_prefill"],
+        "launches_tp_path_qwen3_14b": tp_c[2]["kernel_launches"]["flash_prefill"],
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,
         "ms": q_t["ms"],
@@ -2422,6 +2724,8 @@ def main() -> int:
                          "qwen3_14b": spec_t["prefill_qwen3_14b"],
                          "draft_window": spec_t["prefill_draft_window"],
                          **{k[len("prefill_"):]: v for k, v in p11_t.items()
+                            if k.startswith("prefill_")},
+                         **{"tp_shard_" + k[len("prefill_"):]: v for k, v in tp_t[0].items()
                             if k.startswith("prefill_")}},
     }, scan_entry("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",

@@ -68,9 +68,18 @@ position at once (:meth:`NeoEngine._run_spec_chain`); the accept walk
 emits only what serial greedy decode would have, and rollback frees only
 pages the chain grew.  Verify wall time goes to
 ``EngineStats.spec_busy_time`` and the unaudited ``spec`` span track, never
-to the lane busy times ``reconcile()`` audits.  Tensor parallelism (ROADMAP
-P13) is not ported: building the engine with ``tp > 1`` raises
-``NotImplementedError``.
+to the lane busy times ``reconcile()`` audits.
+
+Tensor parallelism (``EngineConfig.tp``, gather-TP,
+:mod:`repro_torch.distributed.sharding`) is the reference's single
+controller: one engine thread drives ``tp`` shards, each on a device of
+``shard_devices`` (:func:`repro_torch.launch.mesh.shard_devices`: by
+default ``cuda:0`` .. ``cuda:tp-1``, ``tp`` x ``cpu`` for a CPU engine; an
+explicit list may name one device more than once).  The device pool shards
+by KV head, each shard's host attention runs over its KV-head view of the
+one host pool, and swaps fan out into per-shard copy streams; the scheduler
+above sees one engine.  It serves the dense family on the paged engine
+only, as the reference does; greedy tokens are those of ``tp=1``.
 
 Fault tolerance: every accepted request is journaled (prompt + sampling
 params + emitted tokens); :meth:`export_journal` / :meth:`replay_journal`
@@ -100,6 +109,8 @@ from repro_torch.core.scheduler import BatchPlan, NeoScheduler, PoolView, SchedQ
 from repro_torch.core.spec import NgramDrafter
 from repro_torch.core.transfer import WAIT_TIMEOUT_S, TransferEngine
 from repro_torch.device import new_stream, on_stream, resolve_device
+from repro_torch.distributed.sharding import check_tp
+from repro_torch.launch.mesh import shard_devices as make_shard_devices
 from repro_torch.models.api import get_model
 from repro_torch.obs.tracer import SpanTracer
 
@@ -208,12 +219,6 @@ class _SpecRow:
         self.pages = pages
 
 
-def _unsupported(engine_cfg: EngineConfig) -> Optional[str]:
-    if engine_cfg.tp > 1:
-        return "tensor-parallel serving is not ported yet (ROADMAP P13)"
-    return None
-
-
 def _union(windows: List[Tuple[float, float]]) -> float:
     """Length of the union of [start, end] windows."""
     merged = sorted(windows)
@@ -234,7 +239,8 @@ class NeoEngine:
     ``params`` is a state dict of the port's model (for example
     :func:`repro_torch.models.bridge.params_from_reference` of a reference
     tree); without it the weights are random, from a ``torch.Generator``
-    seeded with ``engine_cfg.seed``.
+    seeded with ``engine_cfg.seed``.  ``shard_devices`` places the shards
+    of a ``tp > 1`` engine (see the module docstring).
     """
 
     def __init__(
@@ -244,11 +250,11 @@ class NeoEngine:
         *,
         params: Optional[Mapping[str, Any]] = None,
         device=None,
+        shard_devices: Optional[Sequence[Any]] = None,
     ):
-        why = _unsupported(engine_cfg)
-        if why is not None:
-            raise NotImplementedError(why)
         self.device = resolve_device(device)
+        self.tp = max(1, int(engine_cfg.tp))
+        self.shard_devices = make_shard_devices(self.tp, self.device, shard_devices)
         self.cfg = cfg
         self.engine_cfg = engine_cfg
         self.model = get_model(cfg, device=self.device)
@@ -258,16 +264,22 @@ class NeoEngine:
         else:
             self.model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()},
                                        strict=True)
-        self.perf = PerfModel.for_arch(cfg, engine_cfg.hw_profile, engine_cfg.ewma_alpha)
+        self.perf = PerfModel.for_arch(cfg, engine_cfg.hw_profile, engine_cfg.ewma_alpha,
+                                       tp=self.tp)
         self.scheduler = NeoScheduler(cfg, engine_cfg, self.perf)
         self.paged = cfg.family in PAGED_FAMILIES and cfg.supports_offload
+        if self.tp > 1 and not self.paged:
+            raise ValueError("tp > 1 requires the paged engine "
+                             "(dense family with offload support)")
+        check_tp(cfg, self.tp)
         # the device lane's own stream (the legacy default stream would
         # serialise the host lanes' copies behind it)
         self._stream = new_stream(self.device)
         self.transfer: Optional[TransferEngine] = None
         if self.paged:
             self.pool = DualPool(cfg, engine_cfg.device_pool_pages,
-                                 engine_cfg.host_pool_pages, device=self.device)
+                                 engine_cfg.host_pool_pages, device=self.device,
+                                 shard_devices=self.shard_devices)
             # page 0 stays reserved, as in the reference (its decode scratch
             # page), so both engines see the same device page budget
             self._scratch = self.pool.device.alloc(1)
@@ -276,7 +288,8 @@ class NeoEngine:
                                            threads=engine_cfg.host_threads)
             self.executor = PagedExecutor(self.model, self.pool, self.host_attn,
                                           host_lanes=engine_cfg.max_host_lanes)
-            self.transfer = TransferEngine(self.pool, compute_stream=self._stream)
+            self.transfer = TransferEngine(self.pool, compute_stream=self._stream,
+                                           shards=self.tp)
             self._page = cfg.kv_block_size
             # the two-tier radix prefix cache (off by default: the uncached
             # path is the engine without it)
@@ -731,6 +744,15 @@ class NeoEngine:
     # ------------------------------------------------------------------
     # one iteration
     # ------------------------------------------------------------------
+    def _host_busy_total(self) -> float:
+        """Host-attention busy seconds of the engine's instance and the
+        executor's per-shard instances (gather-TP's batch-0 host rows)."""
+        return self.host_attn.busy_time + sum(h.busy_time for h in self.executor.host_shards)
+
+    def _host_prefix_busy_total(self) -> float:
+        return self.host_attn.prefix_busy_time + sum(
+            h.prefix_busy_time for h in self.executor.host_shards)
+
     def step(self, now: Optional[float] = None) -> List[Tuple[int, int]]:
         """Run one inference iteration; returns [(rid, new_token), ...]."""
         with on_stream(self._stream):
@@ -740,8 +762,8 @@ class NeoEngine:
         t0 = time.perf_counter()
         now = self.clock if now is None else now
         self.clock = now
-        host_busy0 = self.host_attn.busy_time if self.paged else 0.0
-        prefix_busy0 = self.host_attn.prefix_busy_time if self.paged else 0.0
+        host_busy0 = self._host_busy_total() if self.paged else 0.0
+        prefix_busy0 = self._host_prefix_busy_total() if self.paged else 0.0
         dev_busy0 = self.stats.device_busy_time
         spec_busy0 = self.stats.spec_busy_time
         swap_busy0 = self.transfer.stats.busy_time if self.transfer else 0.0
@@ -780,18 +802,21 @@ class NeoEngine:
         if self.paged:
             # perf-model refresh from MEASURED stage times (EWMA); the
             # reference refreshes it on the paged path only
-            host_busy = self.host_attn.busy_time - host_busy0
+            host_busy = self._host_busy_total() - host_busy0
             self.stats.host_busy_time += host_busy
             ts = self.transfer.stats
             self.stats.swap_out_bytes = ts.bytes_out
             self.stats.swap_in_bytes = ts.bytes_in
             self.stats.swap_wait_time = ts.wait_time
+            # the shards' host attention runs concurrently, so its summed
+            # busy time is about tp x the wall time the perf model prices
+            # (an exact no-op at tp=1)
             self.perf.observe_iteration(
                 plan.stages,
-                host_busy=host_busy,
+                host_busy=host_busy / self.tp,
                 device_busy=self.stats.device_busy_time - dev_busy0,
                 swap_busy=ts.busy_time - swap_busy0,
-                host_prefix_busy=self.host_attn.prefix_busy_time - prefix_busy0,
+                host_prefix_busy=(self._host_prefix_busy_total() - prefix_busy0) / self.tp,
                 spec_busy=self.stats.spec_busy_time - spec_busy0,
                 pipelined=self.engine_cfg.pipeline and plan.mode != "serial",
             )

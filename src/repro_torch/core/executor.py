@@ -54,8 +54,24 @@ experts are distinct, so nothing drops and rows stay independent), its
 expert products batched matmuls over the bucket's rows.  Padded rows carry
 token 0 at position 0 with ``lens = 0``; they never write to a pool, never
 reach :class:`HostAttention`, and are dropped at the logits. The reference's
-page buckets for jit and its tensor parallelism are not ported (ROADMAP
-P13).
+page buckets for jit are not ported.
+
+Tensor parallelism (gather-TP, ``shard_devices`` of two or more): the
+decode pass (serial, batch-0 and speculative verify passes) runs, per layer
+and shard, the shard's QKV columns, the K/V write into the shard's pool and
+the paged decode kernel over it (H/tp query heads, KV/tp KV heads); the
+cpu0 host rows of every shard go to that shard's :class:`HostAttention`
+over its KV-head view of the host pool, the shards' host calls running
+concurrently on ``tp`` worker threads, each traced on its own
+``hostattn-b0-s{shard}`` track; then the head concat, the replicated
+``wo``, the shards' ``w_gate``/``w_up`` columns, the d_ff concat and the
+replicated ``w_down`` and logits run once on the primary device.  Cold
+prefill runs the flash prefill kernel per shard over its heads and writes
+each shard's pool.  Host lanes and the gathered prefix prefill run the
+unsharded weights (the latter reads and writes across the shards), and a
+host-prefix prefill takes each shard's prefix partials from its
+:class:`HostAttention` (``hostattn-prefix-s{shard}``), as the reference's
+do.
 
 :class:`ContiguousExecutor` (ssm, hybrid and audio families, device-only)
 keeps one slot of a contiguous cache per active request and runs the
@@ -80,8 +96,10 @@ from repro_torch.core.kv_cache import DualPool
 from repro_torch.core.request import Request
 from repro_torch.core.transfer import WAIT_TIMEOUT_S
 from repro_torch.device import new_stream, on_stream
+from repro_torch.distributed.sharding import tp_allgather
 from repro_torch.kernels.paged_decode import ops as paged_ops
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.bridge import shard_state_dict
+from repro_torch.models.layers import rms_norm, swiglu_hidden
 from repro_torch.models.transformer import DenseLM, mlp_apply, out_proj, project_qkv
 
 
@@ -126,6 +144,23 @@ def _in_row_slices(fn, *tensors):
     return torch.cat(parts)[:D] if len(parts) > 1 else parts[0][:D]
 
 
+def _shard_rows(fn, tp: int, *tensors):
+    """``fn`` over one decode slice's ``tensors`` (rows first) for a
+    gather-TP shard's column-sharded GEMMs.  On the card the rows are padded
+    with zero rows to ``tp`` times their count and the results cut back: the
+    GEMM then computes tp x ROW_SLICE rows over 1/tp of the columns, as many
+    output elements as the unsharded GEMM at ROW_SLICE rows, and cuBLAS
+    splits K as it does there, so a column's bits are the unsharded
+    GEMM's.  At ROW_SLICE rows alone it splits K further for the narrower
+    N: qwen3-14b's ``wk``/``wv`` (K = 5120, N = 1024 -> 512) moved columns
+    on the H100 (PERF.md; tests/test_torch_tp_card.py)."""
+    n = tensors[0].shape[0]
+    if tp == 1 or not tensors[0].is_cuda:
+        return fn(*tensors)
+    out = fn(*(torch.cat([t, t.new_zeros(((tp - 1) * n, *t.shape[1:]))]) for t in tensors))
+    return tuple(o[:n] for o in out) if isinstance(out, tuple) else out[:n]
+
+
 class PagedExecutor:
     """Paged decode + cold prefill for the dense, moe and vlm families."""
 
@@ -137,6 +172,23 @@ class PagedExecutor:
         self.host = host_attn
         self.page = pool.page_size
         self.device = model.device
+        # gather-TP: the shards follow the device pool's; the model keeps
+        # the unsharded weights for host lanes and the gathered prefix path
+        self.shard_devices = list(pool.device.devices)
+        self.tp = len(self.shard_devices)
+        self.host_shards: List[HostAttention] = []
+        self.tp_layers: Optional[List[List[Dict[str, torch.Tensor]]]] = None
+        self._shard_pool: Optional[ThreadPoolExecutor] = None
+        if self.tp > 1:  # the engine has refused what gather-TP does not serve
+            self.tp_layers = self._shard_layers()
+            # one HostAttention per shard over a writable KV-head view of
+            # the ONE host pool: page ids stay global
+            for s in range(self.tp):
+                k_s, v_s = pool.host.kv_head_slice(s, self.tp)
+                self.host_shards.append(HostAttention(self.cfg, k_s, v_s,
+                                                      threads=host_attn.threads))
+            self._shard_pool = ThreadPoolExecutor(max_workers=self.tp,
+                                                  thread_name_prefix="neo-hostshard")
         # Host lanes: ``host_lanes`` dispatch threads; lane ids are small
         # ints the engine assigns per step (the inline lane included), each
         # with a CUDA stream of its own.
@@ -153,6 +205,24 @@ class PagedExecutor:
         # the lane threads emit spans
         self.tracer = None
 
+    def _shard_layers(self) -> List[List[Dict[str, torch.Tensor]]]:
+        """Per layer, per shard: the shard's column slices of ``wq``/``wk``/
+        ``wv`` and ``w_gate``/``w_up`` (and the replicated qk-norm scales)
+        on its device."""
+        cut = shard_state_dict(self.model.state_dict(), self.tp)
+        out = []
+        for i, blk in enumerate(self.model.layers):
+            per = []
+            for s, dev in enumerate(self.shard_devices):
+                sp = {n: cut[s][f"layers.{i}.attn.{n}"].to(dev) for n in ("wq", "wk", "wv")}
+                sp.update({n: cut[s][f"layers.{i}.mlp.{n}"].to(dev) for n in ("w_gate", "w_up")})
+                for n in ("q_norm", "k_norm"):
+                    if n in blk.attn:
+                        sp[n] = blk.attn[n].detach().to(dev)
+                per.append(sp)
+            out.append(per)
+        return out
+
     def _lane_stream(self, lane: int):
         with self._streams_lock:
             if lane not in self._lane_streams:
@@ -167,12 +237,21 @@ class PagedExecutor:
         q, k, v = project_qkv(blk.attn, self.cfg, h[:, None, :], positions[:, None])
         return q[:, 0], k[:, 0], v[:, 0]  # [D,H,hd], [D,KV,hd]
 
-    def _layer_post(self, blk, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    def _layer_post(self, blk, x: torch.Tensor, o: torch.Tensor, shards=None) -> torch.Tensor:
         """Output projection and the layer's FFN (a moe layer routes each
         row as a batch row of one token: capacity 1, and its top-k experts
-        are distinct, so no slot drops and rows stay independent)."""
+        are distinct, so no slot drops and rows stay independent); with
+        gather-TP ``shards``, each shard's SwiGLU hidden columns
+        (:func:`_shard_rows`), concatenated before the replicated
+        ``w_down``."""
         x = x + out_proj(blk.attn, o)
-        return x + mlp_apply(blk, rms_norm(x, blk.ln2, self.cfg.rms_eps))
+        h = rms_norm(x, blk.ln2, self.cfg.rms_eps)
+        if shards is None:
+            return x + mlp_apply(blk, h)
+        hid = tp_allgather([_shard_rows(functools.partial(swiglu_hidden, sp), self.tp,
+                                        h.to(sp["w_gate"].device)) for sp in shards],
+                           -1, x.device)
+        return x + hid @ blk.mlp["w_down"]
 
     @torch.inference_mode()
     def decode(self, rows: List[Request], host_flags: List[bool]) -> np.ndarray:
@@ -212,19 +291,25 @@ class PagedExecutor:
         for i in dev_idx:
             tables[i, : len(rows[i].pages)] = rows[i].pages
             lens[i] = positions[i] + 1
-        tables_t = torch.from_numpy(tables).to(dev)
-        lens_t = torch.from_numpy(lens).to(dev)
-        dev_idx_t = torch.from_numpy(dev_idx).to(dev)
-        dev_pid_t = torch.from_numpy(pids[dev_idx]).to(dev)
-        dev_off_t = torch.from_numpy(offs[dev_idx]).to(dev)
-        host_idx_t = torch.from_numpy(host_idx).to(dev)
+        # the kernel's and the pool writes' inputs, per shard on its device
+        by_dev: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        meta = []
+        for d in self.shard_devices:
+            if d not in by_dev:
+                by_dev[d] = tuple(torch.from_numpy(a).to(d) for a in (
+                    tables, lens, dev_idx, pids[dev_idx], offs[dev_idx], host_idx))
+            meta.append(by_dev[d])
 
         # host rows: tables in the HOST pool, lens before the append
         h_meta = self._host_meta([rows[i] for i in host_idx], positions[host_idx], page)
 
-        model, pk, pv = self.model, self.pool.device.k, self.pool.device.v
+        model = self.model
         x = model.embed_tokens(torch.from_numpy(tokens).to(dev))
         pos_t = torch.from_numpy(positions).to(dev)
+        if self.tp > 1:
+            return self._decode_tp(n, x, pos_t, meta, h_meta)
+        tables_t, lens_t, dev_idx_t, dev_pid_t, dev_off_t, host_idx_t = meta[0]
+        pk, pv = self.pool.device.k, self.pool.device.v
         for li, blk in enumerate(model.layers):
             q, k, v = _in_row_slices(functools.partial(self._layer_pre, blk), x, pos_t)
             if len(dev_idx):
@@ -238,6 +323,83 @@ class PagedExecutor:
                     "hostattn-b0")
             x = _in_row_slices(functools.partial(self._layer_post, blk), x, o)
         return _in_row_slices(model.final_logits, x)[:n].cpu().numpy()
+
+    def _layer_pre_tp(self, blk, shards, x: torch.Tensor, positions: torch.Tensor):
+        """:meth:`_layer_pre` per shard: the shard's q, k and v columns
+        (H/tp and KV/tp heads) on its device, flattened over the shards."""
+        def proj(sp, h, pos):
+            q, k, v = project_qkv(sp, self.cfg, h[:, None, :], pos[:, None])
+            return q[:, 0], k[:, 0], v[:, 0]
+
+        h = rms_norm(x, blk.ln1, self.cfg.rms_eps)
+        out = []
+        for sp in shards:
+            d = sp["wq"].device
+            out += _shard_rows(functools.partial(proj, sp), self.tp, h.to(d), positions.to(d))
+        return tuple(out)
+
+    def _decode_tp(self, n: int, x: torch.Tensor, pos_t: torch.Tensor, meta, h_meta
+                   ) -> np.ndarray:
+        """The layer stack of :meth:`decode` under gather-TP: per shard the
+        QKV columns, the pool write and K1 over the shard's pool, its host
+        rows through the shard's :class:`HostAttention`; the head concat
+        before the replicated ``wo`` and the sharded FFN
+        (:meth:`_layer_post`) on the primary device."""
+        model, pool = self.model, self.pool.device
+        for li, blk in enumerate(model.layers):
+            shards = self.tp_layers[li]
+            qkv = _in_row_slices(functools.partial(self._layer_pre_tp, blk, shards), x, pos_t)
+            outs = []
+            for s in range(self.tp):
+                q, k, v = qkv[3 * s: 3 * s + 3]
+                pk, pv = pool.shard_k[s], pool.shard_v[s]
+                tables_t, lens_t, dev_idx_t, dev_pid_t, dev_off_t, _ = meta[s]
+                if len(dev_idx_t):
+                    pk[li, dev_pid_t, dev_off_t] = k[dev_idx_t].to(pk.dtype)
+                    pv[li, dev_pid_t, dev_off_t] = v[dev_idx_t].to(pv.dtype)
+                outs.append(paged_ops.paged_decode_attention(q.contiguous(), pk[li], pv[li],
+                                                             tables_t, lens_t))
+            if len(h_meta[1]):
+                self._host_attention_tp(li, qkv, outs, meta, h_meta)
+            o = tp_allgather(outs, 1, self.device)
+            x = _in_row_slices(functools.partial(self._layer_post, blk, shards=shards), x, o)
+        return _in_row_slices(model.final_logits, x)[:n].cpu().numpy()
+
+    def _host_attention_tp(self, li: int, qkv, outs: List[torch.Tensor], meta, h_meta) -> None:
+        """Batch-0's host rows under gather-TP: per shard TrQKV of its heads
+        (on this thread), the shards' :meth:`HostAttention.run_layer` calls
+        concurrently on the shard threads, then TrO into each shard's
+        attention output ``outs[s]``."""
+        tables, lens, pids, offs = h_meta
+        R = len(lens)
+        futs = []
+        for s in range(self.tp):
+            host_idx_t = meta[s][5]
+            q, k, v = (t[host_idx_t] for t in qkv[3 * s: 3 * s + 3])
+            arr = torch.cat([t.reshape(R, -1) for t in (q, k, v)], dim=1).float().cpu().numpy()
+            nq, nk = q[0].numel(), k[0].numel()
+            qh = arr[:, :nq].reshape(R, *q.shape[1:])
+            kh = arr[:, nq:nq + nk].reshape(R, *k.shape[1:])
+            vh = arr[:, nq + nk:].reshape(R, *v.shape[1:])
+            futs.append(self._shard_pool.submit(self._host_shard_layer, s, li, qh, kh, vh,
+                                                h_meta))
+        for s, fut in enumerate(futs):
+            oh = fut.result(timeout=WAIT_TIMEOUT_S)
+            outs[s][meta[s][5]] = torch.from_numpy(oh).to(outs[s].device).to(outs[s].dtype)
+
+    def _host_shard_layer(self, s: int, li: int, qh, kh, vh, h_meta) -> np.ndarray:
+        """Shard ``s``'s host attention for one layer (a shard thread),
+        traced as span ``L{li}`` on ``hostattn-b0-s{s}``."""
+        tables, lens, pids, offs = h_meta
+        tr = self.tracer
+        t0 = time.perf_counter() if tr is not None else 0.0
+        oh = self.host_shards[s].run_layer(li, qh, kh, vh, host_rows=np.arange(len(lens)),
+                                           tables=tables, lens=lens, page_ids=pids,
+                                           offsets=offs)
+        if tr is not None:
+            tr.emit(f"hostattn-b0-s{s}", f"L{li}", t0, time.perf_counter(),
+                    {"rows": len(lens), "shard": s})
+        return oh
 
     def _host_attention(self, li: int, q, k, v, meta, dtype, track: str) -> torch.Tensor:
         """TrQKV (one copy) -> CPU attention over the host pool -> TrO for
@@ -336,8 +498,11 @@ class PagedExecutor:
         return self._lane_pool.submit(run_lane)
 
     def close(self, timeout: float = WAIT_TIMEOUT_S) -> None:
-        """Stop the lane threads (idempotent); each is joined with a timeout."""
-        for pool in (self._lane_pool, self._prefix_pool):
+        """Stop the lane and shard threads (idempotent); each is joined with
+        a timeout."""
+        for h in self.host_shards:
+            h.close()
+        for pool in filter(None, (self._lane_pool, self._prefix_pool, self._shard_pool)):
             pool.shutdown(wait=False, cancel_futures=True)
             for t in list(getattr(pool, "_threads", ())):
                 t.join(timeout)
@@ -374,7 +539,9 @@ class PagedExecutor:
         length is part of the result for a moe model (its capacity) and a
         vlm (its patches need S >= their count), so it is the reference's;
         the padding is a suffix, so a dense row's result does not depend on
-        it.  Returns first-token float32 logits [n, V]."""
+        it.  Under gather-TP every shard runs the kernel over its heads and
+        its K/V go into its KV heads of the pools.  Returns first-token
+        float32 logits [n, V]."""
         n, page = len(reqs), self.page
         S = _bucket(max(r.prefill_len for r in reqs), 16)
         tokens = np.zeros((n, S), np.int64)
@@ -383,27 +550,38 @@ class PagedExecutor:
             tokens[i, : r.prefill_len] = r.prefill_tokens
             lens[i] = r.prefill_len
         extras = extras_fn(reqs, S) if extras_fn else {}
-        logits, cache = self.model.prefill(torch.from_numpy(tokens),
-                                           true_lens=torch.from_numpy(lens), **extras)
-        k_all, v_all = cache["k"], cache["v"]  # [L, n, S, KV, hd]
+        if self.tp > 1:
+            if extras:
+                raise NotImplementedError("prefill extras unsupported at tp>1")
+            logits, cache = self.model.prefill(torch.from_numpy(tokens),
+                                               true_lens=torch.from_numpy(lens),
+                                               shards=self.tp_layers)
+            parts = [(s, self.tp) for s in range(self.tp)]
+            kv = list(zip(cache["k"], cache["v"]))  # per shard [L, n, S, KV/tp, hd]
+        else:
+            logits, cache = self.model.prefill(torch.from_numpy(tokens),
+                                               true_lens=torch.from_numpy(lens), **extras)
+            parts = [None]
+            kv = [(cache["k"], cache["v"])]  # [L, n, S, KV, hd]
         for i, (r, host) in enumerate(zip(reqs, to_host)):
             npages = len(r.pages)
-            kr, vr = k_all[:, i], v_all[:, i]
             s_pad = npages * page
-            if s_pad > S:
-                pad = (0, 0, 0, 0, 0, s_pad - S)
-                kr = torch.nn.functional.pad(kr, pad)
-                vr = torch.nn.functional.pad(vr, pad)
-            else:
-                kr, vr = kr[:, :s_pad], vr[:, :s_pad]
-            kr = kr.reshape(kr.shape[0], npages, page, *kr.shape[2:])
-            vr = vr.reshape(vr.shape[0], npages, page, *vr.shape[2:])
-            if host:
-                self.pool.host.put_pages(r.pages, kr, vr)
-                # layer-wise PCIe copy of the freshly computed KV
-                self.pool.add_swap_bytes(2 * kr.numel() * self.pool.host.k.element_size())
-            else:
-                self.pool.device.put_pages(r.pages, kr, vr)
+            for part, (k_all, v_all) in zip(parts, kv):
+                kr, vr = k_all[:, i], v_all[:, i]
+                if s_pad > S:
+                    pad = (0, 0, 0, 0, 0, s_pad - S)
+                    kr = torch.nn.functional.pad(kr, pad)
+                    vr = torch.nn.functional.pad(vr, pad)
+                else:
+                    kr, vr = kr[:, :s_pad], vr[:, :s_pad]
+                kr = kr.reshape(kr.shape[0], npages, page, *kr.shape[2:])
+                vr = vr.reshape(vr.shape[0], npages, page, *vr.shape[2:])
+                if host:
+                    self.pool.host.put_pages(r.pages, kr, vr, part)
+                    # layer-wise PCIe copy of the freshly computed KV
+                    self.pool.add_swap_bytes(2 * kr.numel() * self.pool.host.k.element_size())
+                else:
+                    self.pool.device.put_pages(r.pages, kr, vr, part)
         return logits.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -481,14 +659,16 @@ class PagedExecutor:
         """Device rows: gather each row's cached prefix pages from the
         device pool into [L, n, T, KV, hd] (T = the longest prefix's pages),
         prefill the suffix over it and write the suffix K/V into the device
-        pool."""
+        pool.  Under gather-TP this runs the unsharded weights on the primary
+        device, as the reference's does, over the prefix gathered across the
+        shards, and the suffix K/V are split into the shards' pools."""
         tokens, suffix_lens, prefix_lens, tables = self._suffix_inputs(reqs)
-        idx = torch.from_numpy(tables).to(self.device, torch.long)
         pool = self.pool.device
         L, KV, hd = pool.num_layers, self.cfg.num_kv_heads, self.cfg.head_dim
         T = tables.shape[1] * self.page
-        pk = pool.k[:, idx].reshape(L, len(reqs), T, KV, hd)
-        pv = pool.v[:, idx].reshape(L, len(reqs), T, KV, hd)
+        pk, pv = pool.read_pages(tables)
+        pk = pk.reshape(L, len(reqs), T, KV, hd)
+        pv = pv.reshape(L, len(reqs), T, KV, hd)
         logits, k_all, v_all = self.model.prefill_with_prefix(
             torch.from_numpy(tokens), pk, pv, torch.from_numpy(prefix_lens),
             true_lens=torch.from_numpy(suffix_lens))
@@ -509,17 +689,39 @@ class PagedExecutor:
                     {"rows": int(tables.shape[0])})
         return out
 
+    def _host_prefix_cb_tp(self, tables: np.ndarray, prefix_lens: np.ndarray, layer: int,
+                           qs: List[torch.Tensor]):
+        """:meth:`_host_prefix_cb` under gather-TP: each shard's queries
+        (its heads) go to the host, and the shards' HostAttention instances
+        compute their partials over their KV heads concurrently on the shard
+        threads, each traced on ``hostattn-prefix-s{shard}``."""
+
+        def shard_partials(s: int, q: np.ndarray):
+            tr = self.tracer
+            t0 = time.perf_counter() if tr is not None else 0.0
+            out = self.host_shards[s].prefix_partials(layer, q, tables, prefix_lens)
+            if tr is not None:
+                tr.emit(f"hostattn-prefix-s{s}", f"L{layer}", t0, time.perf_counter(),
+                        {"rows": int(tables.shape[0]), "shard": s})
+            return out
+
+        futs = [self._shard_pool.submit(shard_partials, s, q.float().cpu().numpy())
+                for s, q in enumerate(qs)]
+        return [f.result(timeout=WAIT_TIMEOUT_S) for f in futs]
+
     @torch.inference_mode()
     def _prefill_cached_host(self, reqs: List[Request]) -> np.ndarray:
         """Host rows, zero-copy: the cached prefix pages stay in the host
         pool and are read in place, at their absolute positions, by the
         per-layer callback; only the computed suffix K/V crosses PCIe (its
-        write into the host pool)."""
+        write into the host pool).  Under gather-TP each shard takes its
+        partials from its own HostAttention."""
         tokens, suffix_lens, prefix_lens, tables = self._suffix_inputs(reqs)
+        cb = self._host_prefix_cb_tp if self.tp > 1 else self._host_prefix_cb
         logits, k_all, v_all = self.model.prefill_with_host_prefix(
             torch.from_numpy(tokens), torch.from_numpy(prefix_lens),
-            prefix_cb=functools.partial(self._host_prefix_cb, tables, prefix_lens),
-            true_lens=torch.from_numpy(suffix_lens))
+            prefix_cb=functools.partial(cb, tables, prefix_lens),
+            true_lens=torch.from_numpy(suffix_lens), shards=self.tp_layers)
         self._scatter_suffix(reqs, k_all, v_all, to_host=True)
         return logits.cpu().numpy()
 

@@ -47,17 +47,28 @@ join that applies a staged device write (joining swap-ins) run on the
 engine thread; joining swap-outs is safe from any thread.  Every wait takes
 a timeout.  The prefix cache's :meth:`TransferEngine.copy_pages` runs
 synchronously on the engine thread and the compute stream, as the
-reference's runs on the caller's thread.  The per-shard streams of tensor
-parallelism are not ported (ROADMAP P13).
+reference's runs on the caller's thread.
+
+Under tensor parallelism (``shards > 1``) every swap fans out into one job
+per shard per direction, on streams ``out0``/``out1``/``in0``/…, each with
+a copy stream on its shard's device and a worker of its own: each job moves
+its shard's KV-head slice of the pages between the host pool and that
+shard's device pool (or that slice of an unsharded device pool).  The
+slices partition the pages, so the per-shard bytes sum exactly to the
+one-shard totals (``TransferStats.bytes_by_stream`` records the split); a
+handle's event fires when its last shard's job lands, a swap-in's device
+write waits for every shard's copy, and ``hidden_bytes`` sums the jobs'
+spans as ``obs.reconcile`` does.  ``copy_pages`` copies every shard.
 """
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -78,19 +89,23 @@ class TransferStats:
     bytes_out: int = 0  # device -> host
     bytes_in: int = 0  # host -> device
     busy_time: float = 0.0  # summed worker wall time spent copying
-    # per-stream copy time ("out" / "in"); the two streams overlap, so the
-    # sum may exceed wall time
+    # per-stream copy time ("out" / "in"; "out0" / "in1" / ... per shard
+    # under TP); the streams overlap, so the sum may exceed wall time
     busy_by_stream: Dict[str, float] = field(default_factory=dict)
+    # per-stream bytes moved: under TP the per-shard split of every swap
+    bytes_by_stream: Dict[str, int] = field(default_factory=dict)
     wait_time: float = 0.0  # time join() callers spent blocked
 
 
 class TransferHandle:
-    """Future for one queued request-swap; join before touching the pages."""
+    """Future for one queued request-swap; join before touching the pages.
+    It spans every copy job of the swap (one per shard under TP); its event
+    fires when the last one lands."""
 
     def __init__(self, kind: str, req: Request, nbytes: int):
         self.kind = kind  # "out" | "in"
         self.req = req
-        self.nbytes = nbytes
+        self.nbytes = nbytes  # all jobs together
         # engine iteration that launched this swap (tracing: pairs the
         # worker's copy span with that iteration's dispatch window)
         self.trace_iter = 0
@@ -98,22 +113,30 @@ class TransferHandle:
         self._event = threading.Event()
         self._apply: Optional[Callable[[], None]] = None  # staged device write
         self._joined = False
-        # the CUDA event recorded after this swap's PCIe copy (None on the CPU)
-        self.cuda_event: Optional["torch.cuda.Event"] = None
-        # copy window stamped by the worker: the engine intersects it with
-        # its dispatch window to count bytes hidden under compute
+        # the CUDA events recorded after this swap's PCIe copies (none on
+        # the CPU)
+        self.cuda_events: List["torch.cuda.Event"] = []
+        # copy window stamped by the workers (the union of the jobs'): the
+        # engine intersects the jobs' windows with its dispatch window to
+        # count bytes hidden under compute
         self.copy_start: float = 0.0
         self.copy_end: float = 0.0
+        self._jobs_total = 1
+        self._jobs_done = 0
+        self._job_spans: List[Tuple[int, float, float]] = []  # (nbytes, t0, t1)
 
     def hidden_bytes(self, window_start: float, window_end: float) -> int:
-        """Bytes of this swap hidden under [start, end]: ``int(nbytes *
-        fraction)`` of the copy window overlapped, as the reference counts
-        a single-job swap."""
-        dur = self.copy_end - self.copy_start
-        if dur <= 0:
-            return 0
-        ov = min(self.copy_end, window_end) - max(self.copy_start, window_start)
-        return int(self.nbytes * max(0.0, min(1.0, ov / dur)))
+        """Bytes of this swap hidden under [start, end], summed per job:
+        ``int(nbytes * fraction)`` of each job's copy window overlapped, the
+        truncation ``obs.reconcile`` applies to each copy span."""
+        total = 0
+        for nb, t0, t1 in self._job_spans:
+            dur = t1 - t0
+            if dur <= 0:
+                continue
+            ov = min(t1, window_end) - max(t0, window_start)
+            total += int(nb * max(0.0, min(1.0, ov / dur)))
+        return total
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -126,6 +149,7 @@ class TransferHandle:
 class _Job:
     handle: TransferHandle
     fn: Callable[[], None]
+    nbytes: int  # this job's share of the handle's bytes
 
 
 class TransferEngine:
@@ -133,11 +157,11 @@ class TransferEngine:
 
     ``compute_stream`` is the stream the engine's device lane runs on (the
     current stream at launch when None); swap-outs order their gathers
-    against it.
+    against it.  ``shards`` (tensor parallelism) must divide the KV heads.
     """
 
     def __init__(self, pool: DualPool, *,
-                 compute_stream: Optional["torch.cuda.Stream"] = None):
+                 compute_stream: Optional["torch.cuda.Stream"] = None, shards: int = 1):
         self.pool = pool
         self.stats = TransferStats()
         self._lock = threading.Lock()
@@ -146,9 +170,21 @@ class TransferEngine:
         self.tracer = None
         self.trace_iter = 0
         self.compute_stream = compute_stream
-        dev = pool.device.k.device
-        streams = ("out", "in")  # one copy stream and worker per PCIe direction
-        self._copy_streams = {s: new_stream(dev) for s in streams}
+        self.shards = max(1, int(shards))
+        kv_heads = pool.host.k.shape[3]
+        if self.shards > 1 and kv_heads % self.shards:
+            raise ValueError(f"shards={self.shards} must divide the pool's "
+                             f"{kv_heads} kv head(s)")
+        if pool.device.num_shards not in (1, self.shards):
+            raise ValueError(f"shards={self.shards} for a device pool sharded "
+                             f"{pool.device.num_shards} ways")
+        # one copy stream and worker per PCIe direction, per shard under TP,
+        # each on its shard's device
+        self._parts: List[Optional[Tuple[int, int]]] = (
+            [None] if self.shards == 1 else [(s, self.shards) for s in range(self.shards)])
+        self._copy_streams = {self._stream(kind, p): new_stream(pool.device.part_device(p))
+                              for kind in ("out", "in") for p in self._parts}
+        streams = list(self._copy_streams)
         self._queues: Dict[str, "queue.Queue[Optional[_Job]]"] = {
             s: queue.Queue() for s in streams}
         self._pending: List[TransferHandle] = []
@@ -160,10 +196,15 @@ class TransferEngine:
         for w in self._workers.values():
             w.start()
 
+    @staticmethod
+    def _stream(kind: str, part: Optional[Tuple[int, int]]) -> str:
+        return kind if part is None else f"{kind}{part[0]}"
+
     def _compute(self) -> Optional["torch.cuda.Stream"]:
-        if self.pool.device.k.device.type != "cuda":
+        dev = self.pool.device.devices[0]
+        if dev.type != "cuda":
             return None
-        return self.compute_stream or torch.cuda.current_stream(self.pool.device.k.device)
+        return self.compute_stream or torch.cuda.current_stream(dev)
 
     # ------------------------------------------------------------------
     # workers (one per copy stream)
@@ -180,7 +221,11 @@ class TransferEngine:
                 # may be retired) but complete the handle so no joiner hangs
                 if h.error is None:
                     h.error = RuntimeError("transfer job enqueued after close()")
-                h._event.set()
+                with self._lock:
+                    h._jobs_done += 1
+                    last = h._jobs_done >= h._jobs_total
+                if last:
+                    h._event.set()
                 continue
             t0 = time.perf_counter()
             failed = False
@@ -196,21 +241,30 @@ class TransferEngine:
                 self.stats.busy_time += t1 - t0
                 self.stats.busy_by_stream[stream] = (
                     self.stats.busy_by_stream.get(stream, 0.0) + (t1 - t0))
-            if not failed:
-                h.copy_start, h.copy_end = t0, t1
+                if not failed:
+                    self.stats.bytes_by_stream[stream] = (
+                        self.stats.bytes_by_stream.get(stream, 0) + job.nbytes)
+                    first = not h._job_spans
+                    h.copy_start = t0 if first else min(h.copy_start, t0)
+                    h.copy_end = t1 if first else max(h.copy_end, t1)
+                    h._job_spans.append((job.nbytes, t0, t1))
+                h._jobs_done += 1
+                last = h._jobs_done >= h._jobs_total
             tr = self.tracer
             if tr is not None:
                 # emitted BEFORE the event fires, so the span exists by the
                 # time any join on this handle returns
                 tr.emit(f"copy-{stream}", h.kind, t0, t1,
-                        {"nbytes": h.nbytes, "iter": h.trace_iter})
-            h._event.set()
+                        {"nbytes": job.nbytes, "iter": h.trace_iter})
+            if last:
+                h._event.set()
 
     # ------------------------------------------------------------------
     # launch (engine thread)
     # ------------------------------------------------------------------
     def swap_out(self, req: Request) -> TransferHandle:
-        """Device -> host.  Pages/location move now; data moves behind."""
+        """Device -> host.  Pages/location move now; data moves behind, one
+        job per shard."""
         self._ensure_open()
         dev, host = self.pool.device, self.pool.host
         if not req.pages:
@@ -219,43 +273,49 @@ class TransferEngine:
             h._event.set()
             return h
         compute = self._compute()
-        cs = self._copy_streams["out"]
         # the read of the pool is a gather on the compute stream (cast to the
         # host dtype on the card): after every queued write to these pages,
         # before any later kernel that writes the pages freed below
-        with on_stream(compute):
-            k_dev, v_dev = dev.gather(req.pages, host.dtype)
-        if cs is not None:
-            cs.wait_stream(compute)  # an event recorded after the gather
-            k_dev.record_stream(cs)  # the staging outlives its copy below
-            v_dev.record_stream(cs)
-        k_h, _ = copy_async(k_dev, host.k.device, cs)
-        v_h, ev_v = copy_async(v_dev, host.k.device, cs)
+        jobs = []
+        for part in self._parts:
+            cs = self._copy_streams[self._stream("out", part)]
+            with on_stream(compute):
+                k_dev, v_dev = dev.gather(req.pages, host.dtype, part)
+                src = torch.cuda.current_stream(k_dev.device) if cs is not None else None
+            if cs is not None:
+                cs.wait_stream(src)  # an event recorded after the gather
+                k_dev.record_stream(cs)  # the staging outlives its copy below
+                v_dev.record_stream(cs)
+            k_h, _ = copy_async(k_dev, host.k.device, cs)
+            v_h, ev_v = copy_async(v_dev, host.k.device, cs)  # after both copies
+            jobs.append((part, k_h, v_h, ev_v))
         new_pages = host.alloc(len(req.pages))
         dev.free(req.pages)
         req.pages = new_pages
         req.location = "cpu"
-        nbytes = k_h.numel() * k_h.element_size() + v_h.numel() * v_h.element_size()
-        handle = TransferHandle("out", req, nbytes)
+        sizes = [k.numel() * k.element_size() + v.numel() * v.element_size()
+                 for _, k, v, _ in jobs]
+        handle = TransferHandle("out", req, sum(sizes))
         handle.trace_iter = self.trace_iter
-        handle.cuda_event = ev_v  # recorded after both copies on one stream
+        handle.cuda_events = [ev for *_, ev in jobs if ev is not None]
 
-        def copy() -> None:  # copy-stream worker
+        def copy(part, k_h, v_h, ev_v, nb) -> None:  # copy-stream worker
             if ev_v is not None:
                 ev_v.synchronize()  # the staging landed in pinned memory
-            host.scatter(new_pages, k_h, v_h)
+            host.scatter(new_pages, k_h, v_h, part)
             with self._lock:
-                self.stats.bytes_out += nbytes
-            self.pool.add_swap_bytes(nbytes)
+                self.stats.bytes_out += nb
+            self.pool.add_swap_bytes(nb)
 
-        self._enqueue("out", handle, copy)
+        self._enqueue(handle, [(self._stream("out", job[0]), functools.partial(copy, *job, nb), nb)
+                               for job, nb in zip(jobs, sizes)])
         return handle
 
     def swap_in(self, req: Request) -> TransferHandle:
-        """Host -> device.  The in worker gathers the host pages into pinned
-        staging and copies it to the card; the host pages return to the free
-        list and the device pages are written at join time on the engine
-        thread."""
+        """Host -> device.  The in workers (one per shard) gather the host
+        pages into pinned staging and copy it to the card; the host pages
+        return to the free list and the device pages are written at join
+        time on the engine thread, once every shard's copy has landed."""
         self._ensure_open()
         dev, host = self.pool.device, self.pool.host
         if not req.pages:
@@ -269,35 +329,41 @@ class TransferEngine:
         req.location = "gpu"
         page_bytes = host.k[:, :1].numel() * host.k.element_size()
         nbytes = 2 * page_bytes * len(old_pages)
+        nb = nbytes // len(self._parts)  # exact: the slices partition the pages
         handle = TransferHandle("in", req, nbytes)
         handle.trace_iter = self.trace_iter
-        staged: Dict[str, object] = {}
-        device = dev.k.device
+        staged: Dict[Optional[Tuple[int, int]], Tuple[torch.Tensor, torch.Tensor]] = {}
+        events: Dict[Optional[Tuple[int, int]], "torch.cuda.Event"] = {}
 
-        def gather() -> None:  # copy-stream worker, on the in stream
-            k_h, v_h = host.gather(old_pages)
+        def gather(part) -> None:  # copy-stream worker, on the part's in stream
+            k_h, v_h = host.gather(old_pages, shard=part)
+            device = dev.part_device(part)
             stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
-            staged["k"], _ = copy_async(k_h, device, stream)
-            staged["v"], ev = copy_async(v_h, device, stream)
+            k, _ = copy_async(k_h, device, stream)
+            v, ev = copy_async(v_h, device, stream)
             if ev is not None:
-                handle.cuda_event = ev
+                events[part] = ev
                 ev.synchronize()
+            staged[part] = (k, v)
             with self._lock:
-                self.stats.bytes_in += nbytes
-            self.pool.add_swap_bytes(nbytes)
+                self.stats.bytes_in += nb
+            self.pool.add_swap_bytes(nb)
 
         def apply() -> None:  # engine thread, at join: the device-pool write
             host.free(old_pages)
-            k, v = staged["k"], staged["v"]
-            if handle.cuda_event is not None:
-                cur = torch.cuda.current_stream(device)
-                cur.wait_event(handle.cuda_event)
-                k.record_stream(cur)  # the staging outlives this scatter
-                v.record_stream(cur)
-            dev.scatter(new_pages, k, v)
+            for part in self._parts:
+                k, v = staged[part]
+                ev = events.get(part)
+                if ev is not None:
+                    cur = torch.cuda.current_stream(k.device)
+                    cur.wait_event(ev)
+                    k.record_stream(cur)  # the staging outlives this scatter
+                    v.record_stream(cur)
+                dev.scatter(new_pages, k, v, part)
 
         handle._apply = apply
-        self._enqueue("in", handle, gather)
+        self._enqueue(handle, [(self._stream("in", part), functools.partial(gather, part), nb)
+                               for part in self._parts])
         return handle
 
     # ------------------------------------------------------------------
@@ -343,10 +409,15 @@ class TransferEngine:
                     {"pages": len(pages), "nbytes": nbytes})
         return new_pages
 
-    def _enqueue(self, kind: str, handle: TransferHandle, fn: Callable[[], None]) -> None:
+    def _enqueue(self, handle: TransferHandle,
+                 jobs: List[Tuple[str, Callable[[], None], int]]) -> None:
+        """Register ``handle`` as pending, then queue its ``jobs``
+        [(stream, fn, nbytes)], one per shard."""
+        handle._jobs_total = len(jobs)
         with self._lock:
             self._pending.append(handle)
-        self._queues[kind].put(_Job(handle, fn))
+        for stream, fn, nb in jobs:
+            self._queues[stream].put(_Job(handle, fn, nb))
 
     # ------------------------------------------------------------------
     # join
@@ -371,8 +442,8 @@ class TransferEngine:
                     apply, h._apply = h._apply, None
                 if h.error is not None:
                     raise h.error
-                if h.cuda_event is not None:
-                    h.cuda_event.synchronize()
+                for ev in h.cuda_events:
+                    ev.synchronize()
                 if apply is not None:
                     apply()
         finally:

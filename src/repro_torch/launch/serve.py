@@ -59,8 +59,13 @@ the target's device and dtype; its vocabulary must be the target's);
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --n 4 \
       --device-pages 256 --draft-model qwen3-0.6b --spec-decode
 
-Tensor parallelism (``--tp``) raises ``NotImplementedError`` naming its
-ROADMAP item.
+``--tp N`` serves with gather-TP over N shards (dense family, paged
+engine; greedy tokens those of ``--tp 1``): on the card over ``cuda:0`` ..
+``cuda:N-1`` (a ValueError when there are fewer cards), with ``--device
+cpu`` over N CPU shards:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke \
+      --device cpu --tp 2 --n 6 --device-pages 16 --host-pages 64
 """
 
 from __future__ import annotations
@@ -382,13 +387,6 @@ def run_sustained(*, arch: str = "qwen3-0.6b", smoke: bool = True,
     }
 
 
-def _unported_flags(args) -> str:
-    """The first flag asking for something the port does not run yet."""
-    if args.tp != 1:
-        return "tensor-parallel serving is not ported yet (ROADMAP P13)"
-    return ""
-
-
 def draft_model_drafter(target_cfg, draft_arch: str, *, smoke: bool, seed: int,
                         device) -> DraftModelDrafter:
     """The ``--draft-model`` drafter: ``draft_arch``'s model (its smoke
@@ -473,7 +471,10 @@ def main(argv=None) -> int:
     ap.add_argument("--require-reconcile", action="store_true",
                     help="exit 1 unless reconcile(), the audit of the spans against "
                          "EngineStats, passes (switches tracing on)")
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shard count: column-sharded QKV/gate/up with a "
+                         "gather before the replicated O/down projections, so greedy "
+                         "outputs stay those of --tp 1 (needs N cards, or --device cpu)")
     ap.add_argument("--spec-decode", action="store_true",
                     help="speculative decoding: n-gram drafter + one batched verify pass "
                          "per step; greedy outputs stay those of non-speculative decode")
@@ -488,9 +489,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    why = _unported_flags(args)
-    if why:
-        raise NotImplementedError(why)
     if args.sustained:
         result = run_sustained(
             arch=args.arch, smoke=args.smoke, policy=args.policy,
@@ -523,13 +521,14 @@ def main(argv=None) -> int:
         tracing=tracing,
         spec_decode=args.spec_decode or bool(args.draft_model),
         spec_k=args.spec_k,
+        tp=args.tp,
         seed=args.seed,
     )
     open_loop = args.arrivals != "closed"
     print(f"[serve] arch={cfg.name} policy={args.policy} device={args.device} "
           f"pipeline={not args.no_pipeline} microbatch={not args.no_microbatch} "
           f"prefix_cache={args.prefix_cache} planahead={not args.no_planahead} "
-          f"arrivals={args.arrivals} spec={ecfg.spec_decode} "
+          f"arrivals={args.arrivals} tp={args.tp} spec={ecfg.spec_decode} "
           f"pools=({args.device_pages},{args.host_pages})")
     drafter = None
     if args.draft_model:

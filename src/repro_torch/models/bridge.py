@@ -25,18 +25,20 @@ state dicts, for every family the port serves.
 
 Leaves arrive as numpy arrays (the caller converts jax arrays with
 ``np.asarray``); leaf layouts are the same on both sides, so the bridge only
-renames and unstacks.
+renames and unstacks.  :func:`shard_state_dict` splits a state dict into
+the per-shard column slices of tensor-parallel serving.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.config import ArchConfig
+from repro_torch.distributed.sharding import gather_tp_spec
 from repro_torch.models.transformer import layer_pattern
 
 Tree = Dict[str, Any]
@@ -228,3 +230,23 @@ def load_reference_params(model: torch.nn.Module, tree: Mapping[str, Any]) -> to
                                  f"port shape {tuple(own[k].shape)}")
             own[k].copy_(t.to(own[k].dtype))
     return model
+
+
+def shard_state_dict(state: Mapping[str, torch.Tensor], tp: int) -> List[Dict[str, torch.Tensor]]:
+    """The port's state dict -> ``tp`` per-shard weight sets by gather-TP's
+    rule (:func:`repro_torch.distributed.sharding.gather_tp_spec`): shard
+    ``s`` holds the ``s``-th of ``tp`` equal column slices of every
+    column-sharded leaf, contiguous and on the leaf's device; replicated
+    leaves are not repeated.  Concatenated in shard order along their axis,
+    the slices are the unsharded leaves bit for bit."""
+    shards: List[Dict[str, torch.Tensor]] = [{} for _ in range(tp)]
+    for name, leaf in state.items():
+        axis = gather_tp_spec(name)
+        if axis is None:
+            continue
+        if leaf.shape[axis] % tp:
+            raise ValueError(f"{name}: axis {axis} of {tuple(leaf.shape)} does not divide "
+                             f"into {tp} shards")
+        for s, part in enumerate(leaf.detach().chunk(tp, dim=axis)):
+            shards[s][name] = part.contiguous()
+    return shards

@@ -138,12 +138,17 @@ def init_mlp(mlp: nn.ParameterDict, g: torch.Generator) -> None:
         w.data.copy_(dense_init(g, w.shape, w.shape[0], w.dtype, w.device))
 
 
-def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: [..., d_model] -> [..., d_model]."""
+def swiglu_hidden(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x: [..., d_model] -> the hidden [..., f] before ``w_down`` (a
+    tensor-parallel shard passes its d_ff column slice of the weights)."""
     gate = x @ p["w_gate"]
     up = x @ p["w_up"]
-    h = F.silu(gate.float()).to(x.dtype) * up
-    return h @ p["w_down"]
+    return F.silu(gate.float()).to(x.dtype) * up
+
+
+def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x: [..., d_model] -> [..., d_model]."""
+    return swiglu_hidden(p, x) @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ prefix-cache hits, :meth:`DenseLM.prefill_with_prefix` (the suffix over a
 cached prefix gathered from the device pool) and
 :meth:`DenseLM.prefill_with_host_prefix` (the suffix over a prefix the host
 serves in place, through a per-layer callback).
+
+Tensor-parallel serving (gather-TP, :mod:`repro_torch.distributed.sharding`)
+passes ``shards``: per layer, one dict per shard of its column slices
+(``wq``/``wk``/``wv`` over its heads, ``w_gate``/``w_up`` over its d_ff
+columns, the replicated qk-norm scales), each on its shard's device.  The
+model keeps the reference's two seams: each shard's attention output is
+concatenated on the head axis before the replicated ``wo``, and its SwiGLU
+hidden on d_ff before the replicated ``w_down``; both on this model's
+device, where the replicated layers run once.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.sharding import tp_allgather
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
     apply_rope,
@@ -40,20 +50,25 @@ from repro_torch.models.layers import (
     param,
     rms_norm,
     swiglu_apply,
+    swiglu_hidden,
     zeros_cache,
 )
 from repro_torch.models.moe import MoE, moe_apply
 
 Cache = Dict[str, torch.Tensor]
+# per layer, one dict of column slices per tensor-parallel shard
+Shards = List[Dict[str, torch.Tensor]]
 
 
 def project_qkv(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor):
     """h: [B, S, d]; positions: [B, S] or [S].  Returns roped q [B,S,H,hd],
-    k and v [B,S,KV,hd]."""
+    k and v [B,S,KV,hd], where H and KV are the head counts of ``p``'s
+    columns: a tensor-parallel shard passes its slice (H/tp, KV/tp)."""
     B, S, d = h.shape
-    q = (h @ p["wq"].reshape(d, -1)).view(B, S, cfg.num_heads, cfg.head_dim)
-    k = (h @ p["wk"].reshape(d, -1)).view(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"].reshape(d, -1)).view(B, S, cfg.num_kv_heads, cfg.head_dim)
+    H, KV, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
+    q = (h @ p["wq"].reshape(d, -1)).view(B, S, H, hd)
+    k = (h @ p["wk"].reshape(d, -1)).view(B, S, KV, hd)
+    v = (h @ p["wv"].reshape(d, -1)).view(B, S, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
@@ -78,6 +93,23 @@ def attn_full(p, cfg: ArchConfig, x: torch.Tensor, *, causal: bool = True,
     q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device))
     o = attn_lib.prefill_attention(q, k, v, causal=causal, window=window, impl=impl)
     return out_proj(p, o), k, v
+
+
+def attn_full_tp(p, shards: Shards, cfg: ArchConfig, x: torch.Tensor, *,
+                 impl: str = "kernel"):
+    """:func:`attn_full` (causal) under tensor parallelism: each shard
+    projects its heads and runs the prefill attention on its device, and the
+    outputs are concatenated on the head axis before the replicated ``wo``.
+    Returns (out [B, S, d], per-shard roped k and v [B, S, KV/tp, hd])."""
+    S = x.shape[1]
+    outs, ks, vs = [], [], []
+    for sp in shards:
+        dev = sp["wq"].device
+        q, k, v = project_qkv(sp, cfg, x.to(dev), torch.arange(S, device=dev))
+        outs.append(attn_lib.prefill_attention(q, k, v, causal=True, impl=impl))
+        ks.append(k)
+        vs.append(v)
+    return out_proj(p, tp_allgather(outs, 2, x.device)), ks, vs
 
 
 def attn_params(cfg: ArchConfig, dtype: torch.dtype, device) -> nn.ParameterDict:
@@ -133,12 +165,19 @@ def quantize_kv(k: torch.Tensor, v: torch.Tensor):
     return kq, vq, ks, vs
 
 
-def mlp_apply(blk: "Block", x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(blk: "Block", x: torch.Tensor,
+              shards: Optional[Shards] = None) -> torch.Tensor:
     """The layer's FFN: SwiGLU, or the MoE for a ``moe`` layer.  A 2-D
     ``x`` [B, d] (a decode pass) goes through the MoE as B rows of one
-    token each, as the reference's decode does."""
+    token each, as the reference's decode does.  With a dense layer's
+    ``shards`` each shard computes its d_ff columns of the SwiGLU hidden on
+    its device, concatenated before the replicated ``w_down``."""
     if blk.kind != "moe":
-        return swiglu_apply(blk.mlp, x)
+        if shards is None:
+            return swiglu_apply(blk.mlp, x)
+        h = tp_allgather([swiglu_hidden(sp, x.to(sp["w_gate"].device)) for sp in shards],
+                         -1, x.device)
+        return h @ blk.mlp["w_down"]
     if x.ndim == 2:
         return moe_apply(blk.moe, x[:, None, :], blk.moe.cfg)[0][:, 0]
     return moe_apply(blk.moe, x, blk.moe.cfg)[0]
@@ -171,12 +210,17 @@ class Block(nn.Module):
         else:
             init_mlp(self.mlp, g)
 
-    def full(self, cfg: ArchConfig, x: torch.Tensor, impl: str = "kernel"
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Causal full-sequence layer; returns (x, roped k, v)."""
-        o, k, v = attn_full(self.attn, cfg, rms_norm(x, self.ln1, cfg.rms_eps), impl=impl)
+    def full(self, cfg: ArchConfig, x: torch.Tensor, impl: str = "kernel",
+             shards: Optional[Shards] = None):
+        """Causal full-sequence layer; returns (x, roped k, v), with
+        ``shards`` the per-shard lists of k and v."""
+        h = rms_norm(x, self.ln1, cfg.rms_eps)
+        if shards is None:
+            o, k, v = attn_full(self.attn, cfg, h, impl=impl)
+        else:
+            o, k, v = attn_full_tp(self.attn, shards, cfg, h, impl=impl)
         x = x + o
-        x = x + mlp_apply(self, rms_norm(x, self.ln2, cfg.rms_eps))
+        x = x + mlp_apply(self, rms_norm(x, self.ln2, cfg.rms_eps), shards)
         return x, k, v
 
 
@@ -278,7 +322,8 @@ class DenseLM(nn.Module):
     def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
                 true_lens: Optional[torch.Tensor] = None,
                 patch_embeds: Optional[torch.Tensor] = None,
-                impl: str = "kernel") -> Tuple[torch.Tensor, Cache]:
+                impl: str = "kernel",
+                shards: Optional[List[Shards]] = None) -> Tuple[torch.Tensor, Cache]:
         """tokens: [B, S] -> (next-token logits [B, V], cache).
 
         ``true_lens`` [B] marks each row's unpadded length when prompts are
@@ -290,18 +335,23 @@ class DenseLM(nn.Module):
         codes plus ``k_scale``/``v_scale`` with ``kv_cache_dtype="int8"``)
         and ``lens`` [B].  Attention runs the flash prefill kernel once per
         layer (``impl="kernel"``) or its plain version (``impl="plain"``,
-        for oracles).
+        for oracles).  With tensor-parallel ``shards`` (per layer) each
+        shard's attention runs on its device and ``k``/``v`` are lists of the
+        shards' [L, B, S, KV/tp, hd].
         """
         B, S = tokens.shape
         capacity = capacity or S
         x = self._embed_prompt(tokens, patch_embeds)
         ks, vs = [], []
-        for blk in self.layers:
-            x, k, v = blk.full(self.cfg, x, impl)
+        for i, blk in enumerate(self.layers):
+            x, k, v = blk.full(self.cfg, x, impl, None if shards is None else shards[i])
             ks.append(k)
             vs.append(v)
         lens = self._row_lens(B, S, true_lens)
         logits = self._logits_at(x, lens)
+        if shards is not None:
+            return logits, {"k": [torch.stack(k) for k in zip(*ks)],
+                            "v": [torch.stack(v) for v in zip(*vs)], "lens": lens}
         k_all, v_all = torch.stack(ks), torch.stack(vs)
         if capacity > S:
             pad = (0, 0, 0, 0, 0, capacity - S)
@@ -326,10 +376,13 @@ class DenseLM(nn.Module):
 
     # -- serve: partial prefill over a cached prefix (prefix cache) ----------
     def _suffix_prefill(self, tokens: torch.Tensor, prefix_lens: torch.Tensor,
-                        attend, true_lens: Optional[torch.Tensor]):
+                        attend, true_lens: Optional[torch.Tensor],
+                        shards: Optional[List[Shards]] = None):
         """The layer stack of a suffix prefill: positions offset by
-        ``prefix_lens``, each layer's attention ``attend(i, q, k, v)``.
-        Returns (logits [B, V], suffix k/v [L, B, S, KV, hd])."""
+        ``prefix_lens``, each layer's attention ``attend(i, q, k, v)``; with
+        tensor-parallel ``shards``, ``attend(i, qs, ks, vs)`` over the
+        shards' lists returns the shards' outputs.  Returns (logits [B, V],
+        suffix k/v [L, B, S, KV, hd] on this model's device)."""
         cfg, dev = self.cfg, self.device
         B, S = tokens.shape
         prefix_lens = prefix_lens.to(dev)
@@ -338,9 +391,18 @@ class DenseLM(nn.Module):
         ks, vs = [], []
         for i, blk in enumerate(self.layers):
             h = rms_norm(x, blk.ln1, cfg.rms_eps)
-            q, k, v = project_qkv(blk.attn, cfg, h, positions)
-            x = x + out_proj(blk.attn, attend(i, q, k, v).to(x.dtype))
-            x = x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps))
+            sh = None if shards is None else shards[i]
+            if sh is None:
+                q, k, v = project_qkv(blk.attn, cfg, h, positions)
+                o = attend(i, q, k, v)
+            else:
+                qs, kss, vss = map(list, zip(*(
+                    project_qkv(sp, cfg, h.to(sp["wq"].device), positions.to(sp["wq"].device))
+                    for sp in sh)))
+                o = tp_allgather(attend(i, qs, kss, vss), 2, dev)
+                k, v = tp_allgather(kss, 2, dev), tp_allgather(vss, 2, dev)
+            x = x + out_proj(blk.attn, o.to(x.dtype))
+            x = x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps), sh)
             ks.append(k)
             vs.append(v)
         return self._logits_at(x, self._row_lens(B, S, true_lens)), torch.stack(ks), torch.stack(vs)
@@ -366,7 +428,8 @@ class DenseLM(nn.Module):
     @torch.inference_mode()
     def prefill_with_host_prefix(self, tokens: torch.Tensor, prefix_lens: torch.Tensor, *,
                                  prefix_cb: Callable,
-                                 true_lens: Optional[torch.Tensor] = None):
+                                 true_lens: Optional[torch.Tensor] = None,
+                                 shards: Optional[List[Shards]] = None):
         """:meth:`prefill_with_prefix` for a prefix the host serves in place
         (zero-copy host serving): every layer hands its suffix queries
         [B, S, H, hd] to ``prefix_cb(layer, q) -> (acc, l, m)``, float32
@@ -374,14 +437,23 @@ class DenseLM(nn.Module):
         and merges them with the causal suffix attention on this model's
         device (:func:`~repro_torch.models.attention.suffix_attention_merge`).
         The callback takes the place of the reference's ordered
-        ``io_callback``; the prefix itself never crosses PCIe."""
+        ``io_callback``; the prefix itself never crosses PCIe.  With
+        tensor-parallel ``shards``, ``prefix_cb(layer, qs)`` takes the
+        shards' queries [B, S, H/tp, hd] and returns one partial per shard,
+        each merged on its shard's device."""
         dev = self.device
 
         def attend(i, q, k, v):
             acc, l, m = (torch.as_tensor(t).to(dev) for t in prefix_cb(i, q))
             return attn_lib.suffix_attention_merge(q, k, v, acc, l, m)
 
-        return self._suffix_prefill(tokens, prefix_lens, attend, true_lens)
+        def attend_tp(i, qs, ks, vs):
+            return [attn_lib.suffix_attention_merge(
+                q, k, v, *(torch.as_tensor(t).to(q.device) for t in part))
+                for q, k, v, part in zip(qs, ks, vs, prefix_cb(i, qs))]
+
+        return self._suffix_prefill(tokens, prefix_lens, attend if shards is None else attend_tp,
+                                    true_lens, shards)
 
     # -- serve: decode over a contiguous cache (the oracle) ------------------
     @torch.inference_mode()

@@ -90,17 +90,19 @@ def test_entry_points_refuse_cpu_fallback(no_cuda):
         serve.main(["--smoke", "--n", "1", "--arrivals", "poisson"])
 
 
-@pytest.mark.parametrize("arch,option,item", [
-    ("qwen3-0.6b", dict(pipeline=False, tp=2), "P13"),
-    ("deepseek-moe-16b", dict(pipeline=False, tp=2), "P13"),
+@pytest.mark.parametrize("arch,option,exc,match", [
+    ("internvl2-1b", dict(pipeline=False, tp=2), NotImplementedError, "dense family only"),
+    ("deepseek-moe-16b", dict(pipeline=False, tp=2), NotImplementedError, "dense family only"),
+    ("rwkv6-7b", dict(tp=2), ValueError, "requires the paged engine"),
 ])
-def test_unported_engine_options_raise(arch, option, item):
-    """What the engine does not run yet raises, naming its ROADMAP item:
-    tensor parallelism, on the dense and the moe family alike (every family
-    is ported: test_every_family_builds_on_cpu; speculative decoding,
-    refused here until it was ported, builds:
-    test_spec_decode_engine_builds_on_cpu)."""
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_engine_options_raise(arch, option, exc, match):
+    """What the reference's engine refuses, the port's refuses with its
+    exception and message: tensor parallelism beyond the dense family (vlm,
+    moe) and on a contiguous family (every family is ported:
+    test_every_family_builds_on_cpu; speculative decoding and dense
+    tensor parallelism, refused here until they were ported, build:
+    test_spec_decode_engine_builds_on_cpu, tests/test_torch_tp.py)."""
+    with pytest.raises(exc, match=match):
         NeoEngine(get_smoke_config(arch), EngineConfig(**option), device="cpu")
 
 

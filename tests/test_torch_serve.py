@@ -230,18 +230,20 @@ def test_cli_prefix_cache_full_width_schedule_matches_reference(monkeypatch, cap
     assert summaries["port"]["terminal_counts"]["finished"] == 16
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "P13"),
-    (["--tp", "2", "--spec-decode"], "P13"),
-    (["--arch", "deepseek-moe-16b", "--tp", "2"], "P13"),
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--tp", "3"], ValueError, "must divide"),
+    (["--arch", "internvl2-1b", "--tp", "2", "--spec-decode"], NotImplementedError,
+     "dense family only"),
+    (["--arch", "deepseek-moe-16b", "--tp", "2"], NotImplementedError, "dense family only"),
 ])
-def test_cli_refuses_unported_options(flags, item):
-    """What the port does not serve yet raises, naming its ROADMAP item
-    (``--spec-decode`` and ``--spec-k``, refused here until speculative
-    decoding was ported, run: test_cli_spec_decode_*; the moe family,
-    refused until it was ported, serves:
+def test_cli_refuses_unported_options(flags, exc, match):
+    """What the reference's CLI refuses, the port's refuses with its
+    exception: ``--tp`` beyond the dense family, or not dividing the heads
+    (``--tp 2`` on the dense family, refused here until tensor parallelism
+    was ported, serves: tests/test_torch_tp.py; ``--spec-decode`` and
+    ``--spec-k`` run: test_cli_spec_decode_*; the moe family serves:
     test_cli_serves_moe_vlm_and_audio_on_cpu)."""
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", *flags])
 
 

@@ -75,8 +75,8 @@ Phases, each of which fails the run by raising:
              accepted) give bitwise equal tokens and equal pages in use,
              K1 = 28 x (decode passes + verify passes) with as many merges;
              (b) the same prompts with pools 64/512 (host pseudo-rows in
-             verify passes): fp32 spec on held to the dense oracle and
-             equal to fp32 spec off; bf16 spec on vs off counted, each
+             verify passes) at 7 layers: fp32 spec on held to the dense
+             oracle and equal to fp32 spec off; bf16 spec on vs off counted, each
              differing request printed with its residency; (c) qwen3-14b
              with a qwen3-0.6b draft model (``--draft-model``), both full
              width, 4 requests of 256-512 tokens, 16 outputs: tokens equal
@@ -117,7 +117,8 @@ Phases, each of which fails the run by raising:
              phase's 8 requests, pools 512/512 (every row on the card):
              tokens of TP 2 and 4 = TP 1's bitwise, K1 = tp x 28 x decode
              passes, K2 = tp x 28 x prefill calls; (b) TP=2 with pools
-             64/512: fp32 held to the dense oracle; bf16 traced, the
+             64/512 at 7 layers: fp32 held to the dense oracle; bf16
+             traced, the
              per-shard copy streams partitioning the swaps exactly,
              obs.validate ok with hostattn-b0-s0/-s1 and copy-out0/1 tracks,
              reconcile ok; bf16 TP=1 on the same trace recorded beside it
@@ -126,11 +127,29 @@ Phases, each of which fails the run by raising:
              tokens, 16 outputs), peak memory recorded; (d) ``serve --tp``
              beyond the card count raises the device-count ValueError.
              One card says nothing of TP's speed: its shards share one H100;
+3h. bench   — the reference's engine benchmarks and their gates through
+             ``repro_torch.benchmarks.bench_trend.collect`` on full-width
+             qwen3-0.6b (bf16, perf model frozen but for the speculation
+             section, which runs it live and attends on 8 host threads; the
+             reference's traces and pools in pages, its --n cut; every
+             engine's width and depth asserted): micro-batching, mixed-plan lane
+             borrowing, tracing, speculation, the prefix cache with
+             host serving, TP 1 vs 2 and the sustained A/B; prefix cache on
+             = off and the sustained loops' bitwise claims asserted in fp32
+             at full width and 7 layers, their bf16 matches printed; K1/K2
+             launches = shards x 28 x decode passes / prefill calls with a
+             cold row per section; the summary gated against
+             ``src/repro_torch/benchmarks/BENCH_baseline_h100.json``;
+             engine_real's policy table (gpu_only, neo serial, neo, fastdecode)
+             runs first, once, recorded, and its fastdecode burst is the
+             micro-batch and tracing sections' shared run, as
+             ``engine_real.main`` shares it;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
-             over prompt + out[:i] for qwen3-0.6b (the serial engine, then
-             the pipelined one with host rows in batch-1 lanes); the model's
+             over prompt + out[:i] for qwen3-0.6b, all 28 layers (the serial
+             engine, then the pipelined one with host rows in batch-1
+             lanes); the model's
              own plain prefill, then teacher-forced decode steps, for
              rwkv6-7b and zamba2-7b.
 
@@ -145,23 +164,30 @@ prints no result.  It imports nothing of the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
 import re
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-TOL = {"float32": 2e-3, "bfloat16": 2e-2}  # tests/test_kernels.py tolerances
+from repro_torch.benchmarks.common import card_line as bench_card_line  # noqa: E402
+from repro_torch.benchmarks.engine_real import OracleDrafter  # noqa: E402
+from repro_torch.benchmarks.kernels import (BF16_FLOPS, F32_FLOPS, TOL, bound,  # noqa: E402
+                                            flash_bound, mamba2_bound, paged_library_call,
+                                            rwkv6_bound, time_ms)
+
 NEAR_TIE = 1e-3  # parity: a token within this of the oracle's max logit is a tie
+# depth of the host-attention-heavy repeats of the qwen3-0.6b path (full
+# width): 3d (b) and 3g (b), cut so that the whole run fits its time limit
+# beside phase 3h (PERF.md §4); the phase-4 parity keeps all 28 layers
+HOST_PHASE_LAYERS = 7
 NO_LIBRARY = ("no single PyTorch call computes this recurrence; the port's "
               "plain version is a loop of chunk steps")
 
@@ -171,10 +197,10 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    line = bench_card_line()
+    if line is None:
+        raise RuntimeError("nvidia-smi gave no card name and power limit")
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -194,56 +220,6 @@ def make_case(torch, B, H, KV, hd, page, lens, dtype, seed):
     bt = perm.reshape(B, maxp).to(torch.int32).contiguous()
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
     return q, kp, vp, bt, ln
-
-
-def time_ms(torch, fn, flush, iters=30, warmup=3):
-    """Median device time of ``fn`` with L2 flushed before each launch (the
-    main path finds each layer's pages cold)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    evs = []
-    for _ in range(iters):
-        flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        evs.append((s, e))
-    torch.cuda.synchronize()
-    ts = sorted(s.elapsed_time(e) for s, e in evs)
-    return ts[len(ts) // 2]
-
-
-def bound(q, lens, page, KV, hd):
-    """Least time for the work this input needs: each needed K/V token, q,
-    the output, lens and the needed block-table entries once; 4*H*hd FLOPs
-    per token (f32 math, outside the tensor cores)."""
-    el = q.element_size()
-    B, H, _ = q.shape
-    tok = sum(lens)
-    nbytes = (tok * KV * hd * 2 * el + 2 * q.numel() * el + 4 * B
-              + 4 * sum(-(-n // page) for n in lens))
-    flops = 4 * H * hd * tok
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def library_call(torch, q, kp, vp, bt, ln, page):
-    """scaled_dot_product_attention over K/V gathered ahead of time into a
-    contiguous [B, KV, S, hd] tensor, with a length mask (yardstick only)."""
-    import torch.nn.functional as F
-
-    B, H, hd = q.shape
-    KV = kp.shape[2]
-    S = bt.shape[1] * page
-    k = kp[bt.long()].reshape(B, S, KV, hd).transpose(1, 2).contiguous()
-    v = vp[bt.long()].reshape(B, S, KV, hd).transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    return lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
-                                                  enable_gqa=True)
 
 
 def kernel_phase(torch):
@@ -306,10 +282,10 @@ def decode_time(torch, flush, label, B, H, KV, hd, lens, sweep=()):
     q, kp, vp, bt, ln = make_case(torch, B, H, KV, hd, 16, lens, torch.bfloat16, seed=9)
     out = kern(q, kp, vp, bt, ln)
     err = float((out.float() - paged_decode_ref(q, kp, vp, bt, ln).float()).abs().max())
-    t_k = time_ms(torch, lambda: kern(q, kp, vp, bt, ln), flush)
-    t_p = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, bt, ln), flush)
-    t_l = time_ms(torch, library_call(torch, q, kp, vp, bt, ln, 16), flush)
-    by_split = {pps: time_ms(torch, lambda: launch(q, kp, vp, bt, ln, pps), flush)
+    t_k = time_ms(lambda: kern(q, kp, vp, bt, ln), flush)
+    t_p = time_ms(lambda: paged_decode_ref(q, kp, vp, bt, ln), flush)
+    t_l = time_ms(paged_library_call(q, kp, vp, bt, ln, 16), flush)
+    by_split = {pps: time_ms(lambda: launch(q, kp, vp, bt, ln, pps), flush)
                 for pps in sweep}
     b_ms, b_by = bound(q, lens, 16, KV, hd)
     log(f"[kernel] timing {label}: B={B} H={H} KV={KV} hd={hd} bf16 sum(lens)={sum(lens)} "
@@ -353,33 +329,6 @@ def row_invariance(torch, kern):
         if not all(same):
             raise AssertionError(f"paged_decode ({dt_name}): a row's output changes with "
                                  "its batch")
-
-
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
-
-
-def prefill_pairs(S, causal, window):
-    """(query, key) pairs one head attends over at length S."""
-    if not causal and not window:
-        return S * S
-    total = 0
-    for i in range(S):
-        lo = max(0, i - window + 1) if window else 0
-        hi = i if causal else S - 1
-        total += hi - lo + 1
-    return total
-
-
-def flash_bound(q, k, causal, window, flops_per_s=BF16_FLOPS):
-    """Each of q, k, v and the output once at 3.35 TB/s; the 4 hd FLOPs of
-    QK^T and PV per (query, key) pair a head sees (half the square when
-    causal) at ``flops_per_s`` (the bf16 tensor-core rate by default)."""
-    B, S, H, hd = q.shape
-    el = q.element_size()
-    nbytes = 2 * q.numel() * el + 2 * k.numel() * el
-    flops = 4 * hd * B * H * prefill_pairs(S, causal, window)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def flash_inputs(torch, B, S, H, KV, hd, dtype, seed):
@@ -432,10 +381,10 @@ def flash_time(torch, flush, label, B, S, H, KV, hd, window, dt_name="bfloat16",
     err = flash_check(torch, dt_name, dict(B=B, S=S, H=H, KV=KV, hd=hd, causal=causal,
                                            window=window), q, k, v)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    t_k = time_ms(torch, lambda: flash_prefill(q, k, v, causal=causal, window=window), flush)
-    t_p = time_ms(torch, lambda: flash_prefill_ref(q, k, v, causal=causal, window=window),
+    t_k = time_ms(lambda: flash_prefill(q, k, v, causal=causal, window=window), flush)
+    t_p = time_ms(lambda: flash_prefill_ref(q, k, v, causal=causal, window=window),
                   flush)
-    t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                                 enable_gqa=True), flush)
     b_ms, b_by = flash_bound(q, k, causal, window,
                              BF16_FLOPS if dt_name == "bfloat16" else F32_FLOPS)
@@ -615,36 +564,6 @@ def mamba2_inputs(torch, B, T, H, P, N, dtype, seed, strong=False):
     return x, dt, A, Bm, Cm, D, s0
 
 
-def scan_bound(nbytes, flops, dtype):
-    """Least time for the work: bytes at 3.35 TB/s, or the recurrence's
-    operations at the peak of the unit that runs the kernel's products (the
-    bf16 tensor cores, or f32 FFMA)."""
-    peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def rwkv6_bound(args):
-    """Each input and output byte once; 4 N^2 operations per token per head
-    (the recurrence's own count: y = r.(S + u k v^T) and S <- w S + k v^T)."""
-    r, k, v, w, u, s0 = args
-    B, T, H, N = r.shape
-    nbytes = sum(t.numel() * t.element_size() for t in args) + r.numel() * r.element_size() \
-        + s0.numel() * 4
-    return scan_bound(nbytes, 4 * N * N * B * T * H, str(r.dtype).split(".")[-1])
-
-
-def mamba2_bound(args):
-    """Each input and output byte once; 5 N P operations per token per head
-    (the recurrence's own count: S <- a S + B (dt x), y = C.S)."""
-    x, dt, A, Bm, Cm, D, s0 = args
-    B, T, H, P = x.shape
-    N = Bm.shape[-1]
-    nbytes = sum(t.numel() * t.element_size() for t in args) + x.numel() * x.element_size() \
-        + s0.numel() * 4
-    return scan_bound(nbytes, 5 * N * P * B * T * H, str(x.dtype).split(".")[-1])
-
-
 def stage_ms(torch, fn, flush, prefix, n=20):
     """Device time of each of the kernel's stages per launch (torch.profiler,
     L2 flushed before each call; every call launches each stage once), by
@@ -675,8 +594,8 @@ def scan_time(torch, name, kern, plain, make, shape, dt_name, bound, prefix, flu
     got, want = kern(*args), plain(*args)
     err = max(float((got[0].float() - want[0].float()).abs().max()),
               float((got[1] - want[1]).abs().max()))
-    t_k = time_ms(torch, lambda: kern(*args), flush)
-    t_p = time_ms(torch, lambda: plain(*args), flush)
+    t_k = time_ms(lambda: kern(*args), flush)
+    t_p = time_ms(lambda: plain(*args), flush)
     stages = stage_ms(torch, lambda: kern(*args), flush, prefix)
     b_ms, b_by = bound(args)
     log(f"[kernel] timing {name}: {shape} {dt_name} kernel={t_k:.4f} ms plain={t_p:.4f} ms "
@@ -754,7 +673,7 @@ def mamba2_kernel_phase(torch):
     # heads per block of stages 1 and 3 (ops.HEADS_PER_BLOCK is the default)
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     args = mamba2_inputs(torch, B=1, T=512, H=112, P=64, N=64, dtype=torch.bfloat16, seed=9)
-    t["heads_per_block_ms"] = {hg: time_ms(torch, lambda: _launch(*args, heads_per_block=hg),
+    t["heads_per_block_ms"] = {hg: time_ms(lambda: _launch(*args, heads_per_block=hg),
                                            flush) for hg in (1, 2, 4, 8)}
     log("[kernel] timing mamba2_ssd by heads per block (bf16, full shape): "
         + json.dumps({k: round(v, 4) for k, v in t["heads_per_block_ms"].items()}))
@@ -1408,19 +1327,9 @@ def spec_trace(vocab, seed=5):
     return trace
 
 
-class ReplayDrafter:
-    """Proposes the recorded continuation of a run with speculation off:
-    every draft is accepted (forced full accepts at depth K)."""
-
-    def __init__(self, prompts, outs):
-        self.table = {}
-        for p, o in zip(prompts, outs):
-            seq = list(p) + list(o)
-            for t in range(len(o)):
-                self.table[tuple(seq[:len(p) + t])] = list(o[t:])
-
-    def propose(self, tokens, k):
-        return self.table.get(tuple(tokens), [])[:k]
+# the replay drafter: proposes the recorded continuation of a run with
+# speculation off, so every draft is accepted (forced full accepts at depth K)
+ReplayDrafter = OracleDrafter
 
 
 class WrongDrafter(ReplayDrafter):
@@ -1714,7 +1623,7 @@ def spec_phase(torch, card):
     cfg = get_config("qwen3-0.6b")
     t0 = time.perf_counter()
     a = spec_phase_a(torch, cfg, card)
-    b = spec_phase_b(torch, cfg, card)
+    b = spec_phase_b(torch, cfg.replace(num_layers=HOST_PHASE_LAYERS), card)
     c_on, c_off = spec_phase_c(torch, card)
     log(f"[spec] (a) bf16 device-resident: off / ngram / replay / wrong bitwise equal "
         f"(asserted); ngram accept rate {a['ngram']['accept_rate']:.4f}, largest verify "
@@ -2242,7 +2151,7 @@ def tp_phase_b(torch, card):
     from repro_torch.obs import reconcile
     from repro_torch.obs.validate import validate
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config("qwen3-0.6b").replace(num_layers=HOST_PHASE_LAYERS)
     trace = make_trace(8, cfg.vocab_size)
     cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
     out = {}
@@ -2372,6 +2281,174 @@ def tp_phase(torch, card):
         f"peak {c[1]['peak_mem_GB']:.1f} / {c[2]['peak_mem_GB']:.1f} GB; (d) {d}; phase "
         f"{time.perf_counter() - t0:.1f} s")
     return kern, a, b, c
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the reference's engine benchmarks and their gates at full width
+# ---------------------------------------------------------------------------
+
+# the sizes fit the whole run into its time limit: bench_trend's --n is 12,
+# engine_real's 24 and prefix_cache --quick's turns 8 (PERF.md §4)
+BENCH_N = 3  # bench_trend's --n (the spec section takes max(2, min(n, 3)): 3, its own)
+BENCH_POLICY_N = 3  # engine_real's --n for the policy table
+BENCH_PREFIX_N = 4  # prefix_cache's turns
+BENCH_RECHECK_LAYERS = 7  # depth of the fp32 re-runs (full width)
+# host attention threads of the spec section (perf model live, as the
+# reference's): with one thread each verify pseudo-row is a full serial
+# numpy row attention and the oracle's win came and went around 1.0 on the
+# card (PERF.md §6); 8 is the card machine's core count, fixed here so the
+# gate's verdict does not follow the machine it runs on
+BENCH_SPEC_HOST_THREADS = 8
+# sections whose engines serve fastdecode without speculation: every decode
+# runs in host lanes (decode_host_lane), so K1 has no launch there
+BENCH_HOST_DECODE_ONLY = ("fastdecode", "microbatch", "obs")
+
+
+class LaunchAudit:
+    """The K1 and K2 launches the engines built while it is installed must
+    make: shards x layers per executor decode pass (batch-0, serial and
+    verify passes alike) and per prefill call with a cold row; checked per
+    section, with every launch counter zeroed just before and read just
+    after."""
+
+    def __init__(self, d_model, layers, recheck_layers):
+        self.want = collections.Counter()
+        self.calls = collections.Counter()
+        self.record = {}
+        self.d_model, self.full_layers, self.recheck_layers = d_model, layers, recheck_layers
+        self.layers = layers
+
+    def install(self):
+        """Wrap the executor of every paged engine built from now on;
+        returns the restorer."""
+        from repro_torch.core.engine import NeoEngine
+
+        init, audit = NeoEngine.__init__, self
+
+        def counted_init(engine, *a, **k):
+            init(engine, *a, **k)
+            if engine.paged:
+                audit.wrap(engine)
+
+        NeoEngine.__init__ = counted_init
+        return lambda: setattr(NeoEngine, "__init__", init)
+
+    def wrap(self, engine):
+        got = (engine.cfg.d_model, engine.cfg.num_layers)
+        if got != (self.d_model, self.layers):
+            raise AssertionError(f"bench: an engine of d_model {got[0]} and {got[1]} layers "
+                                 f"where {self.d_model} and {self.layers} were due")
+        ex, per = engine.executor, engine.tp * engine.cfg.num_layers
+
+        def counted(name):
+            fn = getattr(ex, name)
+
+            def wrapped(*a, **k):
+                self.calls[name] += 1
+                if name != "prefill":
+                    self.want["paged_decode"] += per
+                elif any(r.cached_len == 0 for r in a[0]):
+                    self.calls["prefill_with_cold_row"] += 1
+                    self.want["flash_prefill"] += per
+                return fn(*a, **k)
+            return wrapped
+
+        for name in ("decode", "decode_batch0", "prefill"):
+            setattr(ex, name, counted(name))
+
+    @contextlib.contextmanager
+    def section(self, name):
+        self.want.clear()
+        self.calls.clear()
+        self.layers = (self.recheck_layers if name.endswith("_float32")
+                       else self.full_layers)
+        zero_counters()
+        yield
+        launched = counters()
+        want = {"paged_decode": self.want["paged_decode"],
+                "flash_prefill": self.want["flash_prefill"], "rwkv6_scan": 0, "mamba2_ssd": 0}
+        got = {k: launched[k] for k in want}
+        host_only = name in BENCH_HOST_DECODE_ONLY
+        if (got != want or (want["paged_decode"] == 0) != host_only
+                or want["flash_prefill"] == 0
+                or launched["paged_decode_merge"] > launched["paged_decode"]):
+            raise AssertionError(f"bench {name}: launches {got} != {want} (merges "
+                                 f"{launched['paged_decode_merge']}; calls {dict(self.calls)})")
+        self.record[name] = {**got, "paged_decode_merge": launched["paged_decode_merge"],
+                             "executor_calls": dict(self.calls)}
+
+
+def bench_phase(torch, card, *, n=BENCH_N, policy_n=BENCH_POLICY_N, prefix_n=BENCH_PREFIX_N):
+    """engine_real's default policy table once (recorded), then
+    ``repro_torch.benchmarks.bench_trend.collect`` at full width on the card
+    (qwen3-0.6b bf16, the reference's traces and pools in pages, perf model
+    frozen but for the spec section, which runs it live on
+    ``BENCH_SPEC_HOST_THREADS`` host threads) with the table's fastdecode
+    burst as its shared run; prefix cache on = off and the sustained loops'
+    bitwise claims asserted in fp32 at full width and 7 layers (their bf16
+    matches printed as a record), every other gate in bf16; every engine's
+    width and depth and its K1/K2 launches checked per section; the summary
+    gated against ``BENCH_baseline_h100.json``.  One JSON line per
+    section."""
+    from repro_torch.benchmarks import bench_trend, engine_real
+    from repro_torch.benchmarks.common import bench_config, free_params
+
+    t0 = time.perf_counter()
+    full = bench_config("qwen3-0.6b")
+    audit = LaunchAudit(full.d_model, full.num_layers, BENCH_RECHECK_LAYERS)
+    restore = audit.install()
+    raw = {"wall_s": {}}
+    try:
+        t_table = time.perf_counter()
+        with audit.section("policy_table"):
+            table, fastdecode = engine_real.run_policy_table(policy_n, device="cuda",
+                                                             ewma_alpha=0.0)
+        raw["wall_s"]["policy_table"] = round(time.perf_counter() - t_table, 2)
+        free_card(torch)
+        rc, summary = bench_trend.collect(
+            n, bitwise_dtype="float32", recheck_layers=BENCH_RECHECK_LAYERS,
+            prefix_n=prefix_n, spec_ewma_alpha=None, spec_host_threads=BENCH_SPEC_HOST_THREADS,
+            fastdecode=fastdecode if policy_n == n else None, raw=raw, log=log,
+            section=audit.section, device="cuda", ewma_alpha=0.0)
+    finally:
+        restore()
+        free_params()
+        free_card(torch)
+    er = raw["engine_real"]
+    results = {
+        "microbatch": {k: er[k] for k in ("fastdecode_mb_off", "fastdecode_mb_on")},
+        "mixed_lane": {k: er[k] for k in ("mixed_serial", "mixed_pipelined")},
+        "obs": {k: er[k] for k in ("obs_tracing_off", "obs_tracing_on")},
+        "spec": {k: er[k] for k in ("spec_off", "spec_ngram", "spec_oracle", "spec_gates")},
+        "prefix_cache": raw["prefix_cache"], "sharded": raw["sharded"],
+        "sustained": raw["sustained"], "policy_table": table}
+    for claim in bench_trend.RECHECK:
+        results[f"{claim}_float32"] = raw[f"{claim}_check"]
+    for name, res in results.items():
+        log(json.dumps({"bench": {"section": name, "card": card,
+                                  "wall_s": raw["wall_s"].get(name),
+                                  "rc": raw["rc"].get(name),
+                                  "kernel_launches": audit.record.get(name),
+                                  "results": res}}))
+    log(json.dumps({"bench_summary": summary}))
+    rec = summary["bitwise_record"]
+    log(f"[bench] prefix cache on = off and open = closed loop asserted in "
+        f"{rec['asserted_in']} at {rec['recheck_layers']} layers; bf16 tokens equal (record): "
+        + ", ".join(f"{k} {v[0]}/{v[1]}" for k, v in rec.items() if isinstance(v, list)))
+    log("[bench] policy table (bf16, OSC burst of %d): " % policy_n
+        + ", ".join(f"{k} {r['token_throughput']} tok/s ({r['requests_done']} done, "
+                    f"{r['wall_s']} s)" for k, r in table.items()))
+    if rc:
+        raise AssertionError(f"bench phase: a section's gate failed: {raw['rc']}")
+    with open(bench_trend.H100_BASELINE_PATH) as f:
+        baseline = json.load(f)
+    fails = bench_trend.gate(summary, baseline)
+    if fails:
+        raise AssertionError(f"bench phase: {fails} bench_trend gate(s) failed against "
+                             f"{os.path.relpath(bench_trend.H100_BASELINE_PATH, ROOT)}")
+    log(f"[bench] all gates passed; phase {time.perf_counter() - t0:.1f} s (sections: "
+        + json.dumps(raw["wall_s"]) + ")")
+    return summary, audit.record, table
 
 
 # ---------------------------------------------------------------------------
@@ -2524,6 +2601,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+
+    def elapsed(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 parity: full float32 GEMMs
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
@@ -2572,6 +2653,7 @@ def main() -> int:
     ssd_t, _ = mamba2_kernel_phase(torch)
     spec_t, spec_decode_worst, spec_flash_worst = spec_kernel_phase(torch)
     p11_t, p11_decode_worst, p11_flash_worst = p11_kernel_phase(torch)
+    elapsed("phase 2 (kernels)")
     for dt_name in ("float32", "bfloat16"):
         flash_worst[dt_name] = max(flash_worst[dt_name], spec_flash_worst[dt_name],
                                    p11_flash_worst[dt_name])
@@ -2612,11 +2694,18 @@ def main() -> int:
         f"{traced['reconcile_checks']} checks; obs.validate ok (host lane, copy, adopts)")
     torch.cuda.empty_cache()
     log(json.dumps({"serve": online_phase(cfg, "cuda", card)}))
+    elapsed("phase 3/3b (serve, traced, open loop)")
     torch.cuda.empty_cache()
     prefix_a, prefix_b, _ = prefix_phase(torch, cfg, card)
+    elapsed("phase 3c (prefix)")
     spec_a, _, spec_c, _ = spec_phase(torch, card)
+    elapsed("phase 3d (spec)")
     p11 = p11_phase(torch, card)
+    elapsed("phase 3e/3f (moe, vlm, audio)")
     tp_t, tp_a, tp_b, tp_c = tp_phase(torch, card)
+    elapsed("phase 3g (tp)")
+    _, bench_launches, _ = bench_phase(torch, card)
+    elapsed("phase 3h (bench)")
     for dt_name in ("float32", "bfloat16"):
         worst[dt_name] = max(worst[dt_name], tp_t[1][dt_name])
         flash_worst[dt_name] = max(flash_worst[dt_name], tp_t[2][dt_name])
@@ -2648,6 +2737,7 @@ def main() -> int:
         + "; ".join(f"{k['name'][:60]} {k['total_ms']:.3f} ms x{k['launches']}"
                     for k in busy["top5_kernels"]))
     log(json.dumps({"busy_share": busy}))
+    elapsed("phase 3 (ssm serve, traced rwkv6, busy share)")
     torch.cuda.empty_cache()
 
     from repro_torch.kernels.paged_decode.ops import PAGES_PER_SPLIT
@@ -2672,6 +2762,7 @@ def main() -> int:
                              for tp in (1, 2, 4)},
         "launches_tp_path_offload": tp_b["bf16_tp2"]["kernel_launches"]["paged_decode"],
         "launches_tp_path_qwen3_14b": tp_c[2]["kernel_launches"]["paged_decode"],
+        "launches_bench_path": {k: v["paged_decode"] for k, v in bench_launches.items()},
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -2708,6 +2799,7 @@ def main() -> int:
                              for tp in (1, 2, 4)},
         "launches_tp_path_offload": tp_b["bf16_tp2"]["kernel_launches"]["flash_prefill"],
         "launches_tp_path_qwen3_14b": tp_c[2]["kernel_launches"]["flash_prefill"],
+        "launches_bench_path": {k: v["flash_prefill"] for k, v in bench_launches.items()},
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,
         "ms": q_t["ms"],
@@ -2741,6 +2833,7 @@ def main() -> int:
         log(json.dumps({"parity": parity_phase(torch, cfg, "cuda", trace,
                                                pipeline=pipeline)}))
         torch.cuda.empty_cache()
+    elapsed("phase 4 (qwen3-0.6b parity)")
     for arch, (_, ssm_trace, _) in ssm.items():
         log(json.dumps({"parity": ssm_parity_phase(torch, get_config(arch), "cuda",
                                                    ssm_trace)}))

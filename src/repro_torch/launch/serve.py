@@ -315,37 +315,50 @@ def run_sustained(*, arch: str = "qwen3-0.6b", smoke: bool = True,
                   max_batch_tokens: int = 2048,
                   slo_ttft: float = SLO_TTFT, slo_tpot: float = SLO_TPOT,
                   max_output: int = 16, seed: int = 0,
-                  goodput_tol: float = 0.95, device=None) -> dict:
+                  goodput_tol: float = 0.95, device=None, dtype=None, layers=None,
+                  params=None, ewma_alpha=None, outputs=None) -> dict:
     """Sustained-load A/B gate: closed-loop lockstep (plan-ahead OFF) vs
     the open-loop runner with plan-ahead ON, on the same trace, seed and
     random weights.  Per-row compute does not depend on the plan, so the two
     runs must emit the same tokens per request.  Gates: ``planahead_hits >
     0``, identical outputs, open-loop p99 TTFT within the SLO, open-loop
-    goodput >= ``goodput_tol`` x closed-loop goodput."""
+    goodput >= ``goodput_tol`` x closed-loop goodput.
+
+    ``dtype`` overrides the config's and ``layers`` cuts its depth;
+    ``params`` are the weights (else seeded random ones); ``ewma_alpha``
+    overrides the engine config's; ``outputs``, when
+    given, receives each loop's tokens by request (``closed``, ``open``)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if dtype is not None:
+        cfg = cfg.replace(param_dtype=dtype, activation_dtype=dtype)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    extra = {} if ewma_alpha is None else {"ewma_alpha": ewma_alpha}
 
     def build(planahead: bool) -> NeoEngine:
         ecfg = EngineConfig(
             device_pool_pages=device_pages, host_pool_pages=host_pages,
             max_batch_tokens=max_batch_tokens, policy=policy,
-            planahead=planahead, seed=seed)
-        return NeoEngine(cfg, ecfg, device=device)
+            planahead=planahead, seed=seed, **extra)
+        return NeoEngine(cfg, ecfg, device=device, params=params)
 
     def mk_trace():
         return _clamp_trace(get_trace(trace_name, n, rate, seed), max_batch_tokens, max_output)
 
-    def outputs(engine: NeoEngine):
+    def tokens_of(engine: NeoEngine):
         return {rid: list(r.out_tokens) for rid, r in engine.requests.items()}
 
     closed = build(planahead=False)
     m_closed = run_trace(closed, mk_trace(), vocab=cfg.vocab_size, seed=seed)
-    out_closed = outputs(closed)
+    out_closed = tokens_of(closed)
     closed.close()
 
     open_ = build(planahead=True)
     m_open = run_online(open_, mk_trace(), vocab=cfg.vocab_size, seed=seed)
-    out_open = outputs(open_)
+    out_open = tokens_of(open_)
     open_.close()
+    if outputs is not None:
+        outputs.update(closed=out_closed, open=out_open)
 
     g_closed = m_closed.goodput(slo_ttft, slo_tpot)
     g_open = m_open.goodput(slo_ttft, slo_tpot)

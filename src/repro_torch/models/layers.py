@@ -138,17 +138,40 @@ def init_mlp(mlp: nn.ParameterDict, g: torch.Generator) -> None:
         w.data.copy_(dense_init(g, w.shape, w.shape[0], w.dtype, w.device))
 
 
-def swiglu_hidden(p: Params, x: torch.Tensor) -> torch.Tensor:
+# A prefill's column-shardable GEMMs (QKV, SwiGLU gate/up) run at no fewer
+# rows than this on the card, at TP=1 and per gather-TP shard alike: below
+# it cuBLAS may split K differently for a shard's N/tp columns than for all
+# N, and a column's bits move (qwen3-14b's wq under 64 rows, wk at 64-192
+# on the H100); at 256 rows and more each shard's columns are the unsharded
+# GEMM's (tests/test_torch_tp_card.py).  Decode slices have their own rule
+# (core/executor.py::_shard_rows).
+PREFILL_MIN_ROWS = 256
+
+
+def rows_matmul(x: torch.Tensor, w: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
+    """``x @ w`` for x [..., K] and w [K, N], on the card with the rows
+    (every axis but the last) padded with zeros to ``min_rows`` and cut
+    back: one GEMM of at least ``min_rows`` rows."""
+    rows = x.numel() // x.shape[-1]
+    if not x.is_cuda or rows >= min_rows:
+        return x @ w
+    flat = x.reshape(rows, x.shape[-1])
+    out = torch.cat([flat, flat.new_zeros(min_rows - rows, flat.shape[1])]) @ w
+    return out[:rows].reshape(*x.shape[:-1], w.shape[-1])
+
+
+def swiglu_hidden(p: Params, x: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
     """x: [..., d_model] -> the hidden [..., f] before ``w_down`` (a
-    tensor-parallel shard passes its d_ff column slice of the weights)."""
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"]
+    tensor-parallel shard passes its d_ff column slice of the weights);
+    ``min_rows`` as in :func:`rows_matmul`."""
+    gate = rows_matmul(x, p["w_gate"], min_rows)
+    up = rows_matmul(x, p["w_up"], min_rows)
     return F.silu(gate.float()).to(x.dtype) * up
 
 
-def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+def swiglu_apply(p: Params, x: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
     """x: [..., d_model] -> [..., d_model]."""
-    return swiglu_hidden(p, x) @ p["w_down"]
+    return swiglu_hidden(p, x, min_rows) @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------

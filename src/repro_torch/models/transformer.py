@@ -40,6 +40,7 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.distributed.sharding import tp_allgather
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
+    PREFILL_MIN_ROWS,
     apply_rope,
     dense_init,
     embed_init,
@@ -49,6 +50,7 @@ from repro_torch.models.layers import (
     mlp_params,
     param,
     rms_norm,
+    rows_matmul,
     swiglu_apply,
     swiglu_hidden,
     zeros_cache,
@@ -60,15 +62,17 @@ Cache = Dict[str, torch.Tensor]
 Shards = List[Dict[str, torch.Tensor]]
 
 
-def project_qkv(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor):
+def project_qkv(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
+                min_rows: int = 0):
     """h: [B, S, d]; positions: [B, S] or [S].  Returns roped q [B,S,H,hd],
     k and v [B,S,KV,hd], where H and KV are the head counts of ``p``'s
-    columns: a tensor-parallel shard passes its slice (H/tp, KV/tp)."""
+    columns: a tensor-parallel shard passes its slice (H/tp, KV/tp).  A
+    prefill passes ``min_rows`` (``layers.rows_matmul``)."""
     B, S, d = h.shape
     H, KV, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
-    q = (h @ p["wq"].reshape(d, -1)).view(B, S, H, hd)
-    k = (h @ p["wk"].reshape(d, -1)).view(B, S, KV, hd)
-    v = (h @ p["wv"].reshape(d, -1)).view(B, S, KV, hd)
+    q = rows_matmul(h, p["wq"].reshape(d, -1), min_rows).view(B, S, H, hd)
+    k = rows_matmul(h, p["wk"].reshape(d, -1), min_rows).view(B, S, KV, hd)
+    v = rows_matmul(h, p["wv"].reshape(d, -1), min_rows).view(B, S, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
@@ -84,19 +88,20 @@ def out_proj(p, o: torch.Tensor) -> torch.Tensor:
 
 
 def attn_full(p, cfg: ArchConfig, x: torch.Tensor, *, causal: bool = True,
-              window: int = 0, impl: str = "kernel"
+              window: int = 0, impl: str = "kernel", min_rows: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence attention (prefill); x: [B, S, d] normalised input.
     Returns (out [B, S, d], roped k [B, S, KV, hd], v [B, S, KV, hd]).
-    ``impl``: see :func:`repro_torch.models.attention.prefill_attention`."""
+    ``impl``: see :func:`repro_torch.models.attention.prefill_attention`;
+    ``min_rows``: see :func:`project_qkv`."""
     S = x.shape[1]
-    q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device))
+    q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device), min_rows)
     o = attn_lib.prefill_attention(q, k, v, causal=causal, window=window, impl=impl)
     return out_proj(p, o), k, v
 
 
 def attn_full_tp(p, shards: Shards, cfg: ArchConfig, x: torch.Tensor, *,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", min_rows: int = 0):
     """:func:`attn_full` (causal) under tensor parallelism: each shard
     projects its heads and runs the prefill attention on its device, and the
     outputs are concatenated on the head axis before the replicated ``wo``.
@@ -105,7 +110,7 @@ def attn_full_tp(p, shards: Shards, cfg: ArchConfig, x: torch.Tensor, *,
     outs, ks, vs = [], [], []
     for sp in shards:
         dev = sp["wq"].device
-        q, k, v = project_qkv(sp, cfg, x.to(dev), torch.arange(S, device=dev))
+        q, k, v = project_qkv(sp, cfg, x.to(dev), torch.arange(S, device=dev), min_rows)
         outs.append(attn_lib.prefill_attention(q, k, v, causal=True, impl=impl))
         ks.append(k)
         vs.append(v)
@@ -166,17 +171,18 @@ def quantize_kv(k: torch.Tensor, v: torch.Tensor):
 
 
 def mlp_apply(blk: "Block", x: torch.Tensor,
-              shards: Optional[Shards] = None) -> torch.Tensor:
+              shards: Optional[Shards] = None, min_rows: int = 0) -> torch.Tensor:
     """The layer's FFN: SwiGLU, or the MoE for a ``moe`` layer.  A 2-D
     ``x`` [B, d] (a decode pass) goes through the MoE as B rows of one
     token each, as the reference's decode does.  With a dense layer's
     ``shards`` each shard computes its d_ff columns of the SwiGLU hidden on
-    its device, concatenated before the replicated ``w_down``."""
+    its device, concatenated before the replicated ``w_down``.  A prefill
+    passes ``min_rows`` for the SwiGLU's gate/up (``layers.rows_matmul``)."""
     if blk.kind != "moe":
         if shards is None:
-            return swiglu_apply(blk.mlp, x)
-        h = tp_allgather([swiglu_hidden(sp, x.to(sp["w_gate"].device)) for sp in shards],
-                         -1, x.device)
+            return swiglu_apply(blk.mlp, x, min_rows)
+        h = tp_allgather([swiglu_hidden(sp, x.to(sp["w_gate"].device), min_rows)
+                          for sp in shards], -1, x.device)
         return h @ blk.mlp["w_down"]
     if x.ndim == 2:
         return moe_apply(blk.moe, x[:, None, :], blk.moe.cfg)[0][:, 0]
@@ -215,12 +221,13 @@ class Block(nn.Module):
         """Causal full-sequence layer; returns (x, roped k, v), with
         ``shards`` the per-shard lists of k and v."""
         h = rms_norm(x, self.ln1, cfg.rms_eps)
+        rows = PREFILL_MIN_ROWS
         if shards is None:
-            o, k, v = attn_full(self.attn, cfg, h, impl=impl)
+            o, k, v = attn_full(self.attn, cfg, h, impl=impl, min_rows=rows)
         else:
-            o, k, v = attn_full_tp(self.attn, shards, cfg, h, impl=impl)
+            o, k, v = attn_full_tp(self.attn, shards, cfg, h, impl=impl, min_rows=rows)
         x = x + o
-        x = x + mlp_apply(self, rms_norm(x, self.ln2, cfg.rms_eps), shards)
+        x = x + mlp_apply(self, rms_norm(x, self.ln2, cfg.rms_eps), shards, rows)
         return x, k, v
 
 
@@ -393,16 +400,17 @@ class DenseLM(nn.Module):
             h = rms_norm(x, blk.ln1, cfg.rms_eps)
             sh = None if shards is None else shards[i]
             if sh is None:
-                q, k, v = project_qkv(blk.attn, cfg, h, positions)
+                q, k, v = project_qkv(blk.attn, cfg, h, positions, PREFILL_MIN_ROWS)
                 o = attend(i, q, k, v)
             else:
                 qs, kss, vss = map(list, zip(*(
-                    project_qkv(sp, cfg, h.to(sp["wq"].device), positions.to(sp["wq"].device))
+                    project_qkv(sp, cfg, h.to(sp["wq"].device), positions.to(sp["wq"].device),
+                                PREFILL_MIN_ROWS)
                     for sp in sh)))
                 o = tp_allgather(attend(i, qs, kss, vss), 2, dev)
                 k, v = tp_allgather(kss, 2, dev), tp_allgather(vss, 2, dev)
             x = x + out_proj(blk.attn, o.to(x.dtype))
-            x = x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps), sh)
+            x = x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps), sh, PREFILL_MIN_ROWS)
             ks.append(k)
             vs.append(v)
         return self._logits_at(x, self._row_lens(B, S, true_lens)), torch.stack(ks), torch.stack(vs)

@@ -36,7 +36,13 @@ for n in ("repro_torch.core.transfer", "repro_torch.core.prefix_cache",
           "repro_torch.models.moe", "repro_torch.models.encdec",
           "repro_torch.kernels.flash_prefill.ops",
           "repro_torch.kernels.flash_prefill.ref", "repro_torch.obs",
-          "repro_torch.obs.tracer", "repro_torch.obs.reconcile", "repro_torch.obs.validate"):
+          "repro_torch.obs.tracer", "repro_torch.obs.reconcile", "repro_torch.obs.validate",
+          "repro_torch.benchmarks.common", "repro_torch.benchmarks.engine_real",
+          "repro_torch.benchmarks.prefix_cache", "repro_torch.benchmarks.engine_sharded",
+          "repro_torch.benchmarks.bench_trend", "repro_torch.benchmarks.kernels",
+          "repro_torch.benchmarks.run", "repro_torch.benchmarks.fig6_load_latency",
+          "repro_torch.benchmarks.fig8_fastdecode", "repro_torch.benchmarks.fig9_lengths",
+          "repro_torch.benchmarks.fig10a_cpu"):
     assert n in names, n
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -88,6 +94,25 @@ def test_entry_points_refuse_cpu_fallback(no_cuda):
         serve.main(["--smoke", "--n", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--n", "1", "--arrivals", "poisson"])
+
+
+@pytest.mark.parametrize("entry,argv", [
+    ("engine_real", ["--smoke", "--mixed-lane-only"]),
+    ("engine_real", ["--smoke", "--microbatch-only", "--n", "2"]),
+    ("prefix_cache", ["--smoke", "--quick"]),
+    ("engine_sharded", ["--smoke"]),
+    ("bench_trend", ["--smoke", "--n", "2"]),
+    ("kernels", []),
+])
+def test_benchmark_entry_points_refuse_cpu_fallback(no_cuda, entry, argv):
+    """The benchmarks' ``main``s, like the serve CLI, run on the card unless
+    ``--device cpu`` is given: without CUDA they raise instead of measuring
+    the CPU (the figures run the simulator on the host and take no device)."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.benchmarks.{entry}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
 
 
 @pytest.mark.parametrize("arch,option,exc,match", [

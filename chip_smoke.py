@@ -33,7 +33,8 @@ Phases, each of which fails the run by raising:
              its decoder), checked in fp32 and bf16 and timed in bf16;
 3. serve   — the port's paths, each driven through ``launch.serve`` with
              every kernel's launch counter zeroed just before and read just
-             after: full-width qwen3-0.6b (bf16) through the serial paged
+             after: full-width qwen3-0.6b (bf16, ``SERVE_LAYERS`` of its 28
+             layers here and in 3b) through the serial paged
              engine with a device pool small enough that the neo policy must
              offload; the same trace and pools through the pipelined engine
              (async swaps, host lanes, plan-ahead: the default ``serve``),
@@ -136,7 +137,7 @@ Phases, each of which fails the run by raising:
              borrowing, tracing, speculation, the prefix cache with
              host serving, TP 1 vs 2 and the sustained A/B; prefix cache on
              = off and the sustained loops' bitwise claims asserted in fp32
-             at full width and 7 layers, their bf16 matches printed; K1/K2
+             at full width and 4 layers, their bf16 matches printed; K1/K2
              launches = shards x 28 x decode passes / prefill calls with a
              cold row per section; the summary gated against
              ``src/repro_torch/benchmarks/BENCH_baseline_h100.json``;
@@ -144,6 +145,20 @@ Phases, each of which fails the run by raising:
              runs first, once, recorded, and its fastdecode burst is the
              micro-batch and tracing sections' shared run, as
              ``engine_real.main`` shares it;
+3i. examples — the JAX package's examples as ``repro_torch.examples``,
+             driven through their ``main``/``run`` on full-width qwen3-0.6b
+             (``--full``), K1/K2 counted per run as in 3h: (a) quickstart
+             (its prompts, 8 device / 128 host pages, 8 new tokens) in
+             fp32, NEO's tokens = GPU-only's (the example's own assert)
+             with offloaded decodes > 0, then in bf16 with the tokens
+             equal to GPU-only's counted (a record); (b) serve_online
+             ``--crash`` (``EXAMPLES_N`` = 9 Poisson OSC arrivals) in fp32 on a virtual
+             clock with the perf model frozen: at least one request
+             replayed, every request's tokens = the crash-free run's on
+             the same clock; then bf16 with ``--crash`` and crash-free on
+             the wall clock, served / recovered / makespan / K1 / K2 and
+             the replayed requests' tokens equal to the crash-free run's
+             printed (a record);
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
@@ -151,7 +166,8 @@ Phases, each of which fails the run by raising:
              engine, then the pipelined one with host rows in batch-1
              lanes); the model's
              own plain prefill, then teacher-forced decode steps, for
-             rwkv6-7b and zamba2-7b.
+             rwkv6-7b and zamba2-7b (full width, ``SSM_PARITY_LAYERS``: 16
+             of 32 and 40 of 81 layers).
 
 Output: the card line (nvidia-smi name, power limit), per-case kernel
 lines, the serve summaries, the traced phases' and the busy-share lines,
@@ -167,6 +183,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -188,6 +205,13 @@ NEAR_TIE = 1e-3  # parity: a token within this of the oracle's max logit is a ti
 # width): 3d (b) and 3g (b), cut so that the whole run fits its time limit
 # beside phase 3h (PERF.md §4); the phase-4 parity keeps all 28 layers
 HOST_PHASE_LAYERS = 7
+# depth of phase 3/3b's bf16 qwen3-0.6b runs (serial, pipelined, traced,
+# open loop; full width) and of the rwkv6-7b and zamba2-7b fp32 parity, cut
+# so that the whole run keeps its margin to the time limit on a slower host
+# (PERF.md §4); the phase-4 qwen3-0.6b parity, the busy share and 3h keep
+# every layer, the bf16 ssm serve phases too
+SERVE_LAYERS = 14
+SSM_PARITY_LAYERS = {"rwkv6-7b": 16, "zamba2-7b": 40}
 NO_LIBRARY = ("no single PyTorch call computes this recurrence; the port's "
               "plain version is a loop of chunk steps")
 
@@ -2292,7 +2316,7 @@ def tp_phase(torch, card):
 BENCH_N = 3  # bench_trend's --n (the spec section takes max(2, min(n, 3)): 3, its own)
 BENCH_POLICY_N = 3  # engine_real's --n for the policy table
 BENCH_PREFIX_N = 4  # prefix_cache's turns
-BENCH_RECHECK_LAYERS = 7  # depth of the fp32 re-runs (full width)
+BENCH_RECHECK_LAYERS = 4  # depth of the fp32 re-runs (full width)
 # host attention threads of the spec section (perf model live, as the
 # reference's): with one thread each verify pseudo-row is a full serial
 # numpy row attention and the oracle's win came and went around 1.0 on the
@@ -2385,7 +2409,7 @@ def bench_phase(torch, card, *, n=BENCH_N, policy_n=BENCH_POLICY_N, prefix_n=BEN
     frozen but for the spec section, which runs it live on
     ``BENCH_SPEC_HOST_THREADS`` host threads) with the table's fastdecode
     burst as its shared run; prefix cache on = off and the sustained loops'
-    bitwise claims asserted in fp32 at full width and 7 layers (their bf16
+    bitwise claims asserted in fp32 at full width and 4 layers (their bf16
     matches printed as a record), every other gate in bf16; every engine's
     width and depth and its K1/K2 launches checked per section; the summary
     gated against ``BENCH_baseline_h100.json``.  One JSON line per
@@ -2442,13 +2466,132 @@ def bench_phase(torch, card, *, n=BENCH_N, policy_n=BENCH_POLICY_N, prefix_n=BEN
         raise AssertionError(f"bench phase: a section's gate failed: {raw['rc']}")
     with open(bench_trend.H100_BASELINE_PATH) as f:
         baseline = json.load(f)
-    fails = bench_trend.gate(summary, baseline)
+    verdict = io.StringIO()
+    with contextlib.redirect_stdout(verdict):
+        fails = bench_trend.gate(summary, baseline)
+    log(verdict.getvalue().rstrip())
     if fails:
+        # the failed gates' own lines go into the error, which stderr carries
         raise AssertionError(f"bench phase: {fails} bench_trend gate(s) failed against "
-                             f"{os.path.relpath(bench_trend.H100_BASELINE_PATH, ROOT)}")
+                             f"{os.path.relpath(bench_trend.H100_BASELINE_PATH, ROOT)}:\n"
+                             + verdict.getvalue().rstrip())
     log(f"[bench] all gates passed; phase {time.perf_counter() - t0:.1f} s (sections: "
         + json.dumps(raw["wall_s"]) + ")")
     return summary, audit.record, table
+
+
+# serve_online's --n (its default 12), cut for time: the CPU rehearsal of
+# the fp32 crash run replays 5 requests at 9 as at 12
+EXAMPLES_N = 9
+# virtual seconds per clock reading of 3i's fp32 serve_online runs: the
+# crash leaves five requests to replay, which decode on the recovered
+# engine (the CPU rehearsal with the full config's perf model and
+# scheduler, which set the schedule, not the weights)
+EXAMPLES_TICK = 0.05
+
+
+def run_example(fn, *a, **k):
+    """``fn(*a, **k)`` with its stdout kept (the examples print a line per
+    iteration); returns (result, the printed lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*a, **k)
+    return res, buf.getvalue().splitlines()
+
+
+def examples_phase(torch, card, *, n=EXAMPLES_N):
+    """Phase 3i: quickstart and serve_online at full width through their
+    entry points, K1/K2 launches audited per run (``LaunchAudit``, counters
+    zeroed just before each run and read just after).  Asserts quickstart's
+    fp32 NEO = GPU-only with offloaded decodes, and serve_online's fp32
+    crash run (virtual clock, perf model frozen) = its crash-free run with
+    at least one replay; the bf16 runs are records.  One JSON line each."""
+    from repro_torch.benchmarks.common import bench_config
+    from repro_torch.examples import quickstart, serve_online
+
+    t0 = time.perf_counter()
+    full = bench_config("qwen3-0.6b")
+    audit = LaunchAudit(full.d_model, full.num_layers, full.num_layers)
+    restore = audit.install()
+    out = {}
+
+    def record(name, summary, lines):
+        out[name] = {**summary, "kernel_launches": audit.record[name], "card": card}
+        log(json.dumps({"examples": {"run": name, **out[name]}}))
+        for line in lines[-3:]:
+            if line.strip():
+                log(f"[examples] {name}: {line}")
+
+    def serve(name, dtype, crash, virtual):
+        argv = ["--full", "--dtype", dtype, "--n", str(n)] + (["--crash"] if crash else [])
+        kw = {}
+        if virtual:
+            clk = serve_online.VirtualClock(EXAMPLES_TICK)
+            kw = dict(clock=clk.perf_counter, sleep=clk.sleep, ewma_alpha=0.0)
+        t = time.perf_counter()
+        with audit.section(name):
+            res, lines = run_example(serve_online.main, argv, **kw)
+        wall = time.perf_counter() - t
+        free_card(torch)
+        record(name, {"served": res["served"], "recovered": res["recovered"],
+                      "makespan_s": res["makespan_s"], "clock": "virtual" if virtual else "wall",
+                      "wall_s": wall, "iterations": res["iterations"], **res["stats"]}, lines)
+        return res
+
+    try:
+        # (a) quickstart: fp32 asserted by the example itself, bf16 counted
+        with audit.section("quickstart_float32"):
+            q32, lines = run_example(quickstart.main, ["--full", "--dtype", "float32"])
+        free_card(torch)
+        if q32["stats"]["neo"]["offloaded_decodes"] == 0:
+            raise AssertionError(f"examples: quickstart fp32 offloaded no decode: {q32['stats']}")
+        record("quickstart_float32", {"neo_equals_gpu_only": q32["same"], **q32["stats"]},
+               lines)
+        with audit.section("quickstart_bfloat16"):
+            q16, lines = run_example(quickstart.run, bench_config("qwen3-0.6b", dtype="bfloat16"),
+                                     "cuda")
+        free_card(torch)
+        outs = q16["outputs"]
+        pairs = [(a, b) for r in outs["neo"] for a, b in zip(outs["neo"][r], outs["gpu_only"][r])]
+        eq = sum(a == b for a, b in pairs)
+        record("quickstart_bfloat16", {"tokens_equal_to_gpu_only": [eq, len(pairs)],
+                                       **q16["stats"]}, lines)
+        log(f"[examples] quickstart bf16 (record): {eq} of {len(pairs)} NEO tokens equal "
+            "to GPU-only's")
+
+        # (b) serve_online --crash: fp32 on a virtual clock asserted, bf16 a record
+        c32 = serve("serve_online_crash_float32", "float32", True, True)
+        f32 = serve("serve_online_float32", "float32", False, True)
+        if c32["recovered"] < 1:
+            raise AssertionError("examples: the fp32 crash run replayed no request")
+        same = sum(c32["tokens"][p] == f32["tokens"][p] for p in f32["tokens"])
+        if c32["tokens"] != f32["tokens"]:
+            raise AssertionError(f"examples: fp32 crash run tokens equal the crash-free "
+                                 f"run's for {same} of {len(f32['tokens'])} requests")
+        log(f"[examples] serve_online fp32 --crash (virtual clock): {c32['recovered']} "
+            f"replayed, every request's tokens = the crash-free run's ({same}/{same}, "
+            "asserted)")
+        c16 = serve("serve_online_crash_bfloat16", "bfloat16", True, False)
+        f16 = serve("serve_online_bfloat16", "bfloat16", False, False)
+        rep = [(a, b) for p in c16["replayed"] for a, b in zip(c16["tokens"][p],
+                                                               f16["tokens"][p])]
+        rec = {"recovered": c16["recovered"],
+               "replayed_tokens_equal_to_crash_free": [sum(a == b for a, b in rep), len(rep)],
+               "requests_equal_to_crash_free": [
+                   sum(c16["tokens"][p] == f16["tokens"][p] for p in f16["tokens"]),
+                   len(f16["tokens"])]}
+        out["serve_online_crash_bfloat16"].update(rec)
+        launched = out["serve_online_crash_bfloat16"]["kernel_launches"]
+        log(f"[examples] serve_online bf16 --crash (wall clock, record): served {n}, "
+            f"recovered {c16['recovered']}, makespan {c16['makespan_s']:.3f} s, "
+            f"K1 {launched['paged_decode']}, K2 {launched['flash_prefill']}; replayed "
+            f"tokens equal to the crash-free run's {rec['replayed_tokens_equal_to_crash_free']}"
+            f", whole requests {rec['requests_equal_to_crash_free']}")
+    finally:
+        restore()
+        free_card(torch)
+    log(f"[examples] phase {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2662,8 +2805,9 @@ def main() -> int:
 
     # -- phase 3: serve each path --------------------------------------------
     cfg = get_config("qwen3-0.6b")
-    serial, trace, m, launched, calls, shapes = serve_phase(cfg, "cuda")
-    log(json.dumps({"serve": {**serve_summary(cfg, serial, m, launched, calls, card),
+    serve_cfg = cfg.replace(num_layers=SERVE_LAYERS)
+    serial, trace, m, launched, calls, shapes = serve_phase(serve_cfg, "cuda")
+    log(json.dumps({"serve": {**serve_summary(serve_cfg, serial, m, launched, calls, card),
                               "prefill_shapes": shapes}}))
     # flash_prefill at the padded batch of the serve phase's first prefill call:
     # checked in fp32 and bf16, then timed
@@ -2676,7 +2820,7 @@ def main() -> int:
     flash_t["serve"] = flash_time(torch, flush, "first serve prefill", B0, S0,
                                   cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0)
     del flush
-    pipe, pipe_summary = pipelined_phase(cfg, "cuda", serial, card)
+    pipe, pipe_summary = pipelined_phase(serve_cfg, "cuda", serial, card)
     log(json.dumps({"serve": pipe_summary}))
     log(f"[serve] pipelined vs serial bf16 tokens: {pipe_summary['tokens_equal_to_serial']}"
         f" of {pipe_summary['tokens']} equal (asserted)")
@@ -2684,16 +2828,16 @@ def main() -> int:
     pipe_tokens = {rid: list(r.out_tokens) for rid, r in pipe.requests.items()}
     del serial, pipe
     torch.cuda.empty_cache()
-    traced = traced_phase(cfg, "cuda", pipe_tokens, pipe_summary["makespan_s"], card)
+    traced = traced_phase(serve_cfg, "cuda", pipe_tokens, pipe_summary["makespan_s"], card)
     log(json.dumps({"serve": traced}))
-    log(f"[traced] {cfg.name} pipelined: {traced['tokens_equal_to_untraced']} of "
+    log(f"[traced] {serve_cfg.name} pipelined: {traced['tokens_equal_to_untraced']} of "
         f"{traced['tokens']} tokens equal to the untraced phase's (asserted); "
         f"events recorded {traced['events_recorded']}, dropped 0; tracks "
         f"{','.join(traced['tracks'])}; makespan traced/untraced "
         f"{traced['makespan_ratio_traced_untraced']:.4f}; reconcile ok over "
         f"{traced['reconcile_checks']} checks; obs.validate ok (host lane, copy, adopts)")
     torch.cuda.empty_cache()
-    log(json.dumps({"serve": online_phase(cfg, "cuda", card)}))
+    log(json.dumps({"serve": online_phase(serve_cfg, "cuda", card)}))
     elapsed("phase 3/3b (serve, traced, open loop)")
     torch.cuda.empty_cache()
     prefix_a, prefix_b, _ = prefix_phase(torch, cfg, card)
@@ -2706,6 +2850,8 @@ def main() -> int:
     elapsed("phase 3g (tp)")
     _, bench_launches, _ = bench_phase(torch, card)
     elapsed("phase 3h (bench)")
+    examples = examples_phase(torch, card)
+    elapsed("phase 3i (examples)")
     for dt_name in ("float32", "bfloat16"):
         worst[dt_name] = max(worst[dt_name], tp_t[1][dt_name])
         flash_worst[dt_name] = max(flash_worst[dt_name], tp_t[2][dt_name])
@@ -2763,6 +2909,8 @@ def main() -> int:
         "launches_tp_path_offload": tp_b["bf16_tp2"]["kernel_launches"]["paged_decode"],
         "launches_tp_path_qwen3_14b": tp_c[2]["kernel_launches"]["paged_decode"],
         "launches_bench_path": {k: v["paged_decode"] for k, v in bench_launches.items()},
+        "launches_examples_path": {k: v["kernel_launches"]["paged_decode"]
+                                   for k, v in examples.items()},
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -2800,6 +2948,8 @@ def main() -> int:
         "launches_tp_path_offload": tp_b["bf16_tp2"]["kernel_launches"]["flash_prefill"],
         "launches_tp_path_qwen3_14b": tp_c[2]["kernel_launches"]["flash_prefill"],
         "launches_bench_path": {k: v["flash_prefill"] for k, v in bench_launches.items()},
+        "launches_examples_path": {k: v["kernel_launches"]["flash_prefill"]
+                                   for k, v in examples.items()},
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,
         "ms": q_t["ms"],
@@ -2835,8 +2985,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     elapsed("phase 4 (qwen3-0.6b parity)")
     for arch, (_, ssm_trace, _) in ssm.items():
-        log(json.dumps({"parity": ssm_parity_phase(torch, get_config(arch), "cuda",
-                                                   ssm_trace)}))
+        ssm_cfg = get_config(arch).replace(num_layers=SSM_PARITY_LAYERS[arch])
+        log(json.dumps({"parity": {**ssm_parity_phase(torch, ssm_cfg, "cuda", ssm_trace),
+                                   "layers": ssm_cfg.num_layers}}))
     log(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ import argparse
 import json
 import os
 import time
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -40,6 +40,13 @@ from repro_torch.config import EngineConfig
 from repro_torch.core.engine import EngineStats, NeoEngine
 from repro_torch.core.transfer import TransferStats
 from repro_torch.serving.traces import get_trace
+
+
+class RunResult(dict):
+    """One timed run's JSON dict (the reference's keys), with the wall time
+    of each of its timed engine steps in ``step_times``."""
+
+    step_times: List[float] = []
 
 
 class OracleDrafter:
@@ -68,11 +75,14 @@ def run(policy: str, n: int, seed: int = 0, pipeline: bool = True,
         oracle_from: Optional[dict] = None, *, arch: str = "qwen3-0.6b",
         smoke: bool = False, dtype: Optional[str] = None, layers: Optional[int] = None,
         device=None, params=None, ewma_alpha: Optional[float] = None,
-        host_threads: Optional[int] = None):
+        host_threads: Optional[int] = None, trace_parity: Optional[int] = None):
     """One timed OSC burst (after a warmup burst that makes the neo policy
     offload); returns (the run's JSON dict, outputs by request index).
     ``host_threads`` overrides the host attention's worker threads (the
-    spec section's caller may set it; the reference runs one)."""
+    spec section's caller may set it; the reference runs one).
+    ``trace_parity`` (0 or 1), on an untraced run, attaches a tracer for
+    the timed steps of that parity only (:func:`run_obs_section`'s
+    re-measure)."""
     cfg, dev, params = engine_inputs(arch, smoke=smoke, dtype=dtype, layers=layers,
                                      device=device, params=params, seed=seed)
     ecfg = EngineConfig(
@@ -128,11 +138,28 @@ def run(policy: str, n: int, seed: int = 0, pipeline: bool = True,
     for t in trace:
         rids.append(eng.submit(t.prompt, t.output_len))
         total_tokens += t.prompt_len + t.output_len
+    steps, step = [], eng.step
+    half = None
+    if trace_parity is not None and not tracing:
+        from repro_torch.obs.tracer import SpanTracer
+        half = SpanTracer(ecfg.trace_buffer)
+
+    def timed_step(*a, **k):
+        if half is not None:
+            eng.attach_tracer(half if len(steps) % 2 == trace_parity else None)
+        t = time.perf_counter()
+        try:
+            return step(*a, **k)
+        finally:
+            steps.append(time.perf_counter() - t)
+
+    eng.step = timed_step
     t0 = time.perf_counter()
     eng.run_until_done(max_iters=5000)
     wall = time.perf_counter() - t0
+    del eng.step
     done = sum(1 for rid in rids if eng.requests[rid].state.name == "FINISHED")
-    out = {
+    out = RunResult({
         "policy": policy,
         "pipeline": pipeline,
         "microbatch": microbatch,
@@ -163,7 +190,8 @@ def run(policy: str, n: int, seed: int = 0, pipeline: bool = True,
         "spec_busy_s": round(eng.stats.spec_busy_time, 3),
         "accept_len_hist": {str(k): v for k, v in
                             sorted(eng.stats.accept_len_hist.items())},
-    }
+    })
+    out.step_times = steps
     if tracing:
         from repro_torch.obs.reconcile import reconcile
         rep = reconcile(eng.tracer, eng.stats)
@@ -217,28 +245,47 @@ def _overhead(a, b):
     return max(0.0, 1.0 - b["token_throughput"] / max(a["token_throughput"], 1e-9))
 
 
+def _interleaved_overhead(a: List[float], b: List[float]) -> float:
+    """The tracing overhead from two runs that traced alternate steps, ``a``
+    the even and ``b`` the odd ones: each step index is timed once traced
+    and once untraced, and each run holds as many traced steps as untraced
+    ones, so the host's run-to-run speed cancels but for the product of
+    the two runs' speed gap and the even and odd steps' work gap."""
+    n = min(len(a), len(b))
+    traced = sum(a[0:n:2]) + sum(b[1:n:2])
+    untraced = sum(a[1:n:2]) + sum(b[0:n:2])
+    return max(0.0, 1.0 - untraced / max(traced, 1e-9))
+
+
 def run_obs_section(n: int, off: Optional[Tuple[dict, dict]] = None,
                     **opts) -> Tuple[int, dict]:
     """Tracing A/B on the fastdecode burst, untraced vs traced.  GATES:
     bitwise outputs, ``reconcile`` ok, no dropped event; the tok/s cost is
     recorded as ``tracing_overhead`` (bench_trend gates it at 5%).  ``off``
-    reuses the untraced fastdecode run."""
+    reuses the untraced fastdecode run.
+
+    A wall-clock A/B on a shared host: on an H100 machine whole runs of
+    this burst at full width are fast or slow from run to run by more than
+    the 5% the gate allows (``benchmarks/tracing_ab.py`` measures it).
+    When the first pair is over 5%, the re-measure is two runs, as the
+    reference's, each tracing alternate steps
+    (:func:`_interleaved_overhead`); their tokens are held to the bitwise
+    gate, the first traced run to the reconcile and drop gates too.  The
+    re-measure is printed with the gate's verdict; the JSON keys stay the
+    reference's."""
     r_off, out_off = off if off is not None else run(
         "fastdecode", n, pipeline=True, microbatch=True, **opts)
     r_on, out_on = run("fastdecode", n, pipeline=True, microbatch=True,
                        tracing=True, **opts)
+    traced = [(r_on, out_on)]
     overhead = _overhead(r_off, r_on)
+    remeasure = None
     if overhead > 0.05:
-        # one re-measure of each side, keeping each side's best run, before
-        # calling the tracer slow (wall-clock A/B on a shared host)
-        r_off2, _ = run("fastdecode", n, pipeline=True, microbatch=True, **opts)
-        r_on2, _ = run("fastdecode", n, pipeline=True, microbatch=True,
-                       tracing=True, **opts)
-        if r_off2["token_throughput"] > r_off["token_throughput"]:
-            r_off = r_off2
-        if r_on2["token_throughput"] > r_on["token_throughput"]:
-            r_on = r_on2
-        overhead = _overhead(r_off, r_on)
+        halves = [run("fastdecode", n, pipeline=True, microbatch=True, trace_parity=p,
+                      **opts) for p in (0, 1)]
+        traced += halves
+        remeasure = [r["token_throughput"] for r, _ in halves]
+        overhead = _interleaved_overhead(halves[0][0].step_times, halves[1][0].step_times)
     r_on = dict(r_on)
     r_on["tracing_overhead"] = round(overhead, 4)
     results = {"obs_tracing_off": r_off, "obs_tracing_on": r_on}
@@ -250,7 +297,8 @@ def run_obs_section(n: int, off: Optional[Tuple[dict, dict]] = None,
                   r_on["bubble_fraction"], r_on["trace_events"],
                   r_on["trace_dropped"], r_on["reconcile_ok"]]])
     rc = 0
-    if out_on != out_off:
+    diverged = any(out != out_off for _, out in traced)
+    if diverged:
         print("[engine_real] FAIL: tracing on/off greedy outputs diverge")
         rc = 1
     if not r_on["reconcile_ok"]:
@@ -261,8 +309,10 @@ def run_obs_section(n: int, off: Optional[Tuple[dict, dict]] = None,
         print(f"[engine_real] FAIL: trace ring dropped "
               f"{r_on['trace_dropped']} events")
         rc = 1
-    print(f"[engine_real] tracing gate: overhead={overhead:.2%}, outputs "
-          f"{'identical' if out_on == out_off else 'DIVERGED'}, "
+    print(f"[engine_real] tracing gate: overhead={overhead:.2%}"
+          + (f" (re-measured over two runs tracing alternate steps, {remeasure} tok/s)"
+             if remeasure else "")
+          + f", outputs {'DIVERGED' if diverged else 'identical'}, "
           f"reconcile_ok={r_on['reconcile_ok']}")
     return rc, results
 

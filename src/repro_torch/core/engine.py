@@ -931,7 +931,9 @@ class NeoEngine:
             def _pre(rws: List[Request]):
                 # lane-scoped join: the swap-outs a lane depends on complete
                 # right before ITS host attention reads the pages
-                return lambda: self.transfer.join_requests(rws, kind="out")
+                def join_out() -> None:  # repro-role: lane -- run_lane's `pre`
+                    self.transfer.join_requests(rws, kind="out")
+                return join_out
             thread_lanes = lane_rows if has_dev_lane else lane_rows[:-1]
             for li, rws in enumerate(thread_lanes):
                 futures.append((li, self.executor.submit_host_lane(

@@ -675,6 +675,7 @@ class PagedExecutor:
         self._scatter_suffix(reqs, k_all, v_all, to_host=False)
         return logits.cpu().numpy()
 
+    # repro-role: engine, lane -- called through prefix_cb on its caller's thread
     def _host_prefix_cb(self, tables: np.ndarray, prefix_lens: np.ndarray, layer: int,
                         q: torch.Tensor):
         """One layer's prefix partials on the host: the suffix queries come
@@ -689,6 +690,7 @@ class PagedExecutor:
                     {"rows": int(tables.shape[0])})
         return out
 
+    # repro-role: engine, lane -- called through prefix_cb on its caller's thread
     def _host_prefix_cb_tp(self, tables: np.ndarray, prefix_lens: np.ndarray, layer: int,
                            qs: List[torch.Tensor]):
         """:meth:`_host_prefix_cb` under gather-TP: each shard's queries

@@ -299,7 +299,7 @@ class TransferEngine:
         handle.trace_iter = self.trace_iter
         handle.cuda_events = [ev for *_, ev in jobs if ev is not None]
 
-        def copy(part, k_h, v_h, ev_v, nb) -> None:  # copy-stream worker
+        def copy(part, k_h, v_h, ev_v, nb) -> None:  # repro-role: copy-stream
             if ev_v is not None:
                 ev_v.synchronize()  # the staging landed in pinned memory
             host.scatter(new_pages, k_h, v_h, part)
@@ -335,7 +335,7 @@ class TransferEngine:
         staged: Dict[Optional[Tuple[int, int]], Tuple[torch.Tensor, torch.Tensor]] = {}
         events: Dict[Optional[Tuple[int, int]], "torch.cuda.Event"] = {}
 
-        def gather(part) -> None:  # copy-stream worker, on the part's in stream
+        def gather(part) -> None:  # repro-role: copy-stream -- the part's in stream
             k_h, v_h = host.gather(old_pages, shard=part)
             device = dev.part_device(part)
             stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
@@ -349,7 +349,7 @@ class TransferEngine:
                 self.stats.bytes_in += nb
             self.pool.add_swap_bytes(nb)
 
-        def apply() -> None:  # engine thread, at join: the device-pool write
+        def apply() -> None:  # repro-role: engine -- runs at join time: the device-pool write
             host.free(old_pages)
             for part in self._parts:
                 k, v = staged[part]

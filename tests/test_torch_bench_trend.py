@@ -323,3 +323,61 @@ def test_collect_passes_each_section_its_model(stubbed_sections, smoke):
     spec, = [c for c in seen if c["section"] == "spec"]
     assert spec["ewma_alpha"] == 0.5 and spec["host_threads"] == 8
     assert "fastdecode" not in {c["section"] for c in seen}
+
+
+# the tracing A/B's runs in order, each as its steps' wall times: the
+# untraced run handed in, the traced run, then (when that pair is over 5%)
+# the re-measure's two runs, tracing the even and the odd steps; with the
+# overhead the section must report and whether a re-measure run's tokens
+# differ
+OBS_AB = {
+    "quiet host": ([[1, 1, 1, 1], [1, 1, 1, 1.02]], 1 - 24.9 / 25, False),
+    "a slow host during the traced run, a free tracer": (
+        [[1, 1, 1, 1], [1.5] * 4, [2, 2, 2, 2], [1.2, 1.2, 1.2, 1.2]], 0.0, False),
+    "steps of unequal work, a free tracer": (
+        [[1, 1, 1, 1], [1.5] * 4, [1, 3, 1, 3], [1, 3, 1, 3]], 0.0, False),
+    "a tracer that costs 10%": (
+        [[1, 1, 1, 1], [1.1] * 4, [2.2, 2, 2.2, 2], [1, 1.1, 1, 1.1]], 1 - 6 / 6.6, False),
+    "runs of unequal length: the steps both have": (
+        [[1, 1, 1, 1], [1.5] * 4, [1, 1, 1, 1], [1, 1, 1, 1, 9]], 0.0, False),
+    "a re-measure run's tokens differ": (
+        [[1, 1, 1, 1], [1.5] * 4, [1, 1, 1, 1], [1, 1, 1, 1]], 0.0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(OBS_AB))
+def test_obs_section_remeasures_on_alternate_steps(monkeypatch, capsys, baseline, case):
+    """A host's speed moves from run to run by more than the tracing gate's
+    5%.  Over 5%, the re-measure is two runs that trace alternate steps
+    (``trace_parity`` 0 and 1): each step is timed once traced and once
+    untraced, so a slow run cancels and so do uneven steps, while a tracer that
+    costs 10% still fails ``gate``'s 5%; the re-measure runs' tokens are
+    held to the bitwise gate."""
+    from repro_torch.benchmarks import engine_real
+
+    runs, want, diverge = OBS_AB[case]
+    calls = []
+
+    def result(steps):
+        r = engine_real.RunResult(
+            token_throughput=round(100 / sum(steps), 1), bubble_fraction=0.0,
+            reconcile_ok=True, trace_events=1, trace_dropped=0)
+        r.step_times = list(steps)
+        return r
+
+    def run(policy, n, tracing=False, trace_parity=None, **k):
+        calls.append((tracing, trace_parity))
+        bad = diverge and trace_parity == 1
+        return result(runs[len(calls)]), {0: [2] if bad else [1]}
+
+    monkeypatch.setattr(engine_real, "run", run)
+    rc, res = engine_real.run_obs_section(3, off=(result(runs[0]), {0: [1]}))
+    on = res["obs_tracing_on"]
+    remeasured = len(runs) == 4
+    assert calls == [(True, None)] + ([(False, 0), (False, 1)] if remeasured else [])
+    assert on["tracing_overhead"] == pytest.approx(want, abs=1e-4)
+    assert ("alternate steps" in capsys.readouterr().out) == remeasured
+    assert rc == int(diverge)
+    summary = copy.deepcopy(baseline)
+    summary["obs"]["tracing_overhead"] = on["tracing_overhead"]
+    assert bench_trend.gate(summary, baseline) == int(want > 0.05)

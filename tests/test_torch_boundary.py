@@ -42,7 +42,12 @@ for n in ("repro_torch.core.transfer", "repro_torch.core.prefix_cache",
           "repro_torch.benchmarks.bench_trend", "repro_torch.benchmarks.kernels",
           "repro_torch.benchmarks.run", "repro_torch.benchmarks.fig6_load_latency",
           "repro_torch.benchmarks.fig8_fastdecode", "repro_torch.benchmarks.fig9_lengths",
-          "repro_torch.benchmarks.fig10a_cpu"):
+          "repro_torch.benchmarks.fig10a_cpu", "repro_torch.analysis",
+          "repro_torch.analysis.__main__", "repro_torch.analysis.lint",
+          "repro_torch.analysis.graph", "repro_torch.analysis.rules",
+          "repro_torch.analysis.roles", "repro_torch.analysis.baseline",
+          "repro_torch.analysis.report", "repro_torch.examples.quickstart",
+          "repro_torch.examples.serve_online", "repro_torch.examples.capacity_planner"):
     assert n in names, n
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -159,20 +159,40 @@ Phases, each of which fails the run by raising:
              the wall clock, served / recovered / makespan / K1 / K2 and
              the replayed requests' tokens equal to the crash-free run's
              printed (a record);
+3j. train  — single-device training through ``repro_torch.train``
+             (the plain attention and scans: K1-K4 launch 0 times over the
+             phase, asserted): (a) full-width qwen3-0.6b at
+             ``TRAIN_PARITY_LAYERS`` = 4 layers in fp32 (TF32 off), batch
+             2 x 64 from ``SyntheticTokens``: one step's loss within rel
+             1e-5 and every gradient within 1e-4 of the largest of the
+             port's CPU path's, AdamW and Adafactor updates within 1e-6,
+             6 steps in one run against 3 + checkpoint + a fresh Trainer
+             resumed + 3 within 2e-5 (bitwise-equal leaves counted); (b)
+             qwen3-0.6b, all 28 layers, bf16, AdamW, remat "full", batch
+             8 x 512, 30 steps at lr 1e-3 (3 warmup): finite losses that
+             drop by more than 1.0, the median step time after step 3,
+             tokens/s, peak memory and the model-FLOP share (a record);
+             (c) deepseek-moe-16b at full width, 2 layers (dense0 + one moe
+             layer), fp32: loss, aux and gradients card = CPU, the only
+             card check of the scatter dispatch's backward; (d)
+             ``repro_torch.examples.train_mini`` at its defaults but
+             ``--steps`` (``TRAIN_MINI_STEPS`` = 50 of 300, for time; 64 M
+             fp32 parameters): it resumes from its checkpoint and prints
+             OK;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
-             over prompt + out[:i] for qwen3-0.6b, all 28 layers (the serial
-             engine, then the pipelined one with host rows in batch-1
-             lanes); the model's
+             over prompt + out[:i] for qwen3-0.6b at ``SERVE_LAYERS`` = 14
+             of its 28 layers (the serial engine, then the pipelined one
+             with host rows in batch-1 lanes); the model's
              own plain prefill, then teacher-forced decode steps, for
              rwkv6-7b and zamba2-7b (full width, ``SSM_PARITY_LAYERS``: 16
              of 32 and 40 of 81 layers).
 
 Output: the card line (nvidia-smi name, power limit), per-case kernel
 lines, the serve summaries, the traced phases' and the busy-share lines,
-one ``{"kernels": [...]}`` line, the parity
-counts and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
+the ``{"train": {...}}`` line, one ``{"kernels": [...]}`` line, the parity
+counts, the card line again and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero and
 prints no result.  It imports nothing of the JAX package.
 """
@@ -188,6 +208,7 @@ import json
 import math
 import os
 import re
+import statistics
 import sys
 import time
 
@@ -203,13 +224,14 @@ from repro_torch.benchmarks.kernels import (BF16_FLOPS, F32_FLOPS, TOL, bound,  
 NEAR_TIE = 1e-3  # parity: a token within this of the oracle's max logit is a tie
 # depth of the host-attention-heavy repeats of the qwen3-0.6b path (full
 # width): 3d (b) and 3g (b), cut so that the whole run fits its time limit
-# beside phase 3h (PERF.md §4); the phase-4 parity keeps all 28 layers
+# beside phase 3h (PERF.md §4)
 HOST_PHASE_LAYERS = 7
 # depth of phase 3/3b's bf16 qwen3-0.6b runs (serial, pipelined, traced,
-# open loop; full width) and of the rwkv6-7b and zamba2-7b fp32 parity, cut
-# so that the whole run keeps its margin to the time limit on a slower host
-# (PERF.md §4); the phase-4 qwen3-0.6b parity, the busy share and 3h keep
-# every layer, the bf16 ssm serve phases too
+# open loop; full width), of the phase-4 qwen3-0.6b fp32 parity (beside
+# phase 3j) and of the rwkv6-7b and zamba2-7b fp32 parity, cut so
+# that the whole run keeps its margin to the time limit on a slower host
+# (PERF.md §4); the busy share, 3h and the bf16 ssm serve phases keep every
+# layer
 SERVE_LAYERS = 14
 SSM_PARITY_LAYERS = {"rwkv6-7b": 16, "zamba2-7b": 40}
 NO_LIBRARY = ("no single PyTorch call computes this recurrence; the port's "
@@ -2595,6 +2617,318 @@ def examples_phase(torch, card, *, n=EXAMPLES_N):
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: training on one card
+# ---------------------------------------------------------------------------
+
+TRAIN_PARITY_LAYERS = 4  # depth of 3j (a)'s fp32 parity (full width)
+TRAIN_STEPS = 30  # 3j (b): bf16 qwen3-0.6b, all 28 layers, batch 8 x 512
+# 3j (d): train_mini's steps, cut from its default 300 for time (PERF.md §4)
+TRAIN_MINI_STEPS = 50
+LOSS_RTOL = 1e-5  # 3j (a), (c): card vs CPU loss, as the CPU tests hold port to reference
+GRAD_TOL = 1e-4  # ... each leaf's gradient within this of the largest entry
+OPT_TOL = 1e-6  # ... the optimizer update, of each leaf's largest entry
+RESUME_TOL = 2e-5  # 3 + resume + 3 steps vs 6: the reference's own resume tolerance
+
+
+def seeded(torch, model, seed):
+    return model.init(torch.Generator(device=model.device).manual_seed(seed))
+
+
+def train_grads(torch, cfg, state, batch, device):
+    """(loss, aux, {name: gradient} on the CPU) of ``cfg``'s model with the
+    weights ``state`` on ``device``, through the trainer's value_and_grad."""
+    from repro_torch.models.api import get_model
+    from repro_torch.train.trainer import trainable, value_and_grad
+
+    model = get_model(cfg, device=device)
+    model.load_state_dict(state)
+    params = trainable(model)
+    loss, aux, grads = value_and_grad(model, params, {k: v.to(device) for k, v in batch.items()})
+    out = (float(loss), float(aux["aux"]), {k: g.cpu() for k, g in grads.items()})
+    del model, params, grads
+    return out
+
+
+def card_vs_cpu(torch, cfg, seed, batch, label):
+    """One step's loss, aux and per-leaf gradients of ``cfg`` (fp32, random
+    weights from ``seed``) on the card against the port's CPU path."""
+    from repro_torch.models.api import get_model
+
+    state = {k: v.cpu() for k, v in
+             seeded(torch, get_model(cfg, device="cuda"), seed).state_dict().items()}
+    free_card(torch)
+    t = time.perf_counter()
+    card = train_grads(torch, cfg, state, batch, "cuda")
+    card_s = time.perf_counter() - t
+    free_card(torch)
+    cpu = train_grads(torch, cfg, state, batch, "cpu")
+    scale = max(float(g.abs().max()) for g in cpu[2].values())
+    worst = max((float((card[2][k] - g).abs().max()), k) for k, g in cpu[2].items())
+    rec = {"loss_card": card[0], "loss_cpu": cpu[0],
+           "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+           "aux_card": card[1], "aux_cpu": cpu[1], "grad_max_abs_err": worst[0],
+           "grad_worst_leaf": worst[1], "grad_scale": scale,
+           "grad_err_of_scale": worst[0] / scale, "leaves": len(cpu[2]),
+           "card_step_s": card_s}
+    if rec["loss_rel_err"] > LOSS_RTOL:
+        raise AssertionError(f"train {label}: card loss {card[0]} vs CPU {cpu[0]}")
+    if abs(card[1] - cpu[1]) > LOSS_RTOL * max(abs(cpu[1]), 1e-30):
+        raise AssertionError(f"train {label}: card aux {card[1]} vs CPU {cpu[1]}")
+    if worst[0] > GRAD_TOL * scale:
+        raise AssertionError(f"train {label}: gradient of {worst[1]} off by {worst[0]:.3e} "
+                             f"> {GRAD_TOL} x {scale:.3e}")
+    return rec, state, cpu[2]
+
+
+def optimizer_card_vs_cpu(torch, cfg, state, grads):
+    """AdamW and Adafactor on identical inputs: the parameters, gradients
+    and the state after one CPU update from zeros, then one update on the
+    card and one on the CPU.  The updates (float32 arithmetic) are held to
+    ``OPT_TOL``; Adafactor's bf16 first moment may differ by a rounding
+    step where its float32 value sits on a boundary: counted.  Every leaf
+    but the embedding, whose 155.6 M entries take the CPU side most of the
+    time and run the code of every other 2-D leaf (PERF.md §4)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.models.bridge import reference_stacks
+    from repro_torch.train.optimizer import OPTIMIZERS
+
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    stacks = [g for g in reference_stacks(state, cfg) if g != ["embed"]]
+    state = {k: p for k, p in state.items() if k != "embed"}
+    grads = {k: g for k, g in grads.items() if k != "embed"}
+    half = {k: 0.5 * g for k, g in grads.items()}
+    out = {}
+    for name, (init, update) in OPTIMIZERS.items():
+        _, state1 = update(grads, init(state), state, 0, tc, stacks)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            u, st = update({k: g.to(dev) for k, g in half.items()},
+                           tree_to(state1, dev), {k: p.to(dev) for k, p in state.items()},
+                           1, tc, stacks)
+            res[dev] = ({k: v.cpu() for k, v in u.items()},
+                        {k: v.cpu() for k, v in st["m"].items()})
+            del u, st
+        worst = max(float((res["cuda"][0][k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                    for k, w in res["cpu"][0].items())
+        if worst > OPT_TOL:
+            raise AssertionError(f"train: {name} update on the card off the CPU's by {worst:.3e}"
+                                 f" of a leaf's largest entry > {OPT_TOL}")
+        m_cpu, m_card = res["cpu"][1], res["cuda"][1]
+        out[name] = {"update_err_of_scale": worst,
+                     "m_entries_equal": [sum(int((m_card[k] == m).sum()) for k, m in m_cpu.items()),
+                                         sum(m.numel() for m in m_cpu.values())]}
+        del state1, res
+    free_card(torch)
+    return out
+
+
+def tree_to(tree, dev):
+    """A nested dict of tensors on ``dev``."""
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def resume_on_card(torch, cfg, src):
+    """6 steps in one run (a checkpoint saved after step 3) against a fresh
+    Trainer resumed from that checkpoint and 3 more steps (AdamW), all on
+    the card."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import make_batches
+    from repro_torch.models.api import get_model
+    from repro_torch.train import Trainer
+
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=6, checkpoint_every=3)
+
+    def trainer(seed, ck=None):
+        return Trainer(get_model(cfg, device="cuda"), tc,
+                       generator=torch.Generator(device="cuda").manual_seed(seed),
+                       ckpt_manager=ck)
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d, keep=2, fingerprint=cfg.name)
+        whole = trainer(0, ck)
+        batches = make_batches(src)
+        whole.train(batches, 3, log_every=3)  # saves step 3
+        whole.ckpt = None
+        whole.train(batches, 3, log_every=3)
+        batches.close()
+        want = {k: p.detach().cpu() for k, p in whole.params.items()}
+        del whole
+        again = trainer(1, ck)  # other weights, overwritten by the checkpoint
+        if not again.maybe_resume() or again.step != 3:
+            raise AssertionError("train: the fresh Trainer did not resume at step 3")
+        again.ckpt = None  # nothing more to save
+        again.train(make_batches(src, start_step=3), 3, log_every=3)
+        got = {k: p.detach().cpu() for k, p in again.params.items()}
+        del again
+    free_card(torch)
+    worst = max(float(((got[k] - w).abs() / (RESUME_TOL + RESUME_TOL * w.abs())).max())
+                for k, w in want.items())
+    if worst > 1.0:
+        raise AssertionError(f"train: resumed parameters off the one-run ones ({worst:.3f} "
+                             f"of rtol = atol = {RESUME_TOL})")
+    return {"leaves": len(want), "bitwise_equal_leaves": sum(torch.equal(got[k], w)
+                                                              for k, w in want.items()),
+            "worst_of_tolerance": worst}
+
+
+def train_full_width(torch, card, *, steps=TRAIN_STEPS):
+    """3j (b): qwen3-0.6b, all 28 layers, bf16, AdamW, remat "full", batch
+    8 x 512 from the synthetic pipeline, ``steps`` steps at lr 1e-3 with 3
+    warmup steps (``launch.train``'s schedule); each step timed to a
+    synchronize."""
+    from repro_torch.benchmarks.kernels import BF16_FLOPS
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, make_batches
+    from repro_torch.models.api import get_model
+    from repro_torch.train import Trainer
+
+    cfg = get_config("qwen3-0.6b")
+    B, S = 8, 512
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(get_model(cfg, device="cuda"),
+                      TrainConfig(learning_rate=1e-3, warmup_steps=3, total_steps=steps),
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    n_params = trainer.model.param_count()
+    times = []
+    step_fn = trainer._step_fn
+
+    def timed(*a):
+        t = time.perf_counter()
+        out = step_fn(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    trainer._step_fn = timed
+    batches = make_batches(SyntheticTokens(cfg, batch=B, seq_len=S, seed=0))
+    hist = trainer.train(batches, steps, log_every=1)
+    batches.close()
+    peak = torch.cuda.max_memory_allocated()
+    del trainer
+    free_card(torch)
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite bf16 loss {losses}")
+    if not losses[-1] < losses[0] - 1.0:
+        raise AssertionError(f"train: bf16 loss {losses[0]:.4f} -> {losses[-1]:.4f}, a drop "
+                             "of no more than 1.0")
+    step_s = statistics.median(times[3:])
+    tokens = B * S
+    return {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.param_dtype,
+            "remat": cfg.remat_policy, "optimizer": "adamw", "batch": [B, S],
+            "steps": steps, "params": n_params, "loss_first": losses[0],
+            "loss_last": losses[-1], "losses": losses, "step_ms_median": step_s * 1e3,
+            "step_ms": [t * 1e3 for t in times], "tokens_per_s": tokens / step_s,
+            "peak_memory_gb": peak / 1e9,
+            "model_flop_share": 6 * n_params * tokens / step_s / BF16_FLOPS,
+            "model_flop_share_note": (
+                "6 x params x tokens a step over the step time over the H100 SXM's "
+                "dense bf16 peak of 989 TFLOP/s (NVIDIA data sheet); full remat runs "
+                "more FLOPs than this counts"),
+            "card": card}
+
+
+def train_mini_phase(torch):
+    """3j (d): ``python -m repro_torch.examples.train_mini`` at its defaults
+    but ``--steps`` (``TRAIN_MINI_STEPS``)."""
+    from repro_torch.examples import train_mini
+
+    t = time.perf_counter()
+    res, lines = run_example(train_mini.main, ["--steps", str(TRAIN_MINI_STEPS)])
+    wall = time.perf_counter() - t
+    free_card(torch)
+    for line in lines:
+        if line.strip():
+            log(f"[train] train_mini: {line}")
+    # the last checkpoint of the first half (the reference's arithmetic)
+    every, half = TRAIN_MINI_STEPS // 3, TRAIN_MINI_STEPS // 2
+    want_resume = half // every * every
+    if f"resumed at step {want_resume}" not in lines or res["resumed_at"] != want_resume:
+        raise AssertionError(f"train: train_mini did not resume at step {want_resume}")
+    if not res["ok"] or not lines[-1].endswith("(OK)"):
+        raise AssertionError(f"train: train_mini's verdict: {lines[-1]}")
+    return {"steps": TRAIN_MINI_STEPS, "resumed_at": res["resumed_at"],
+            "step_ms_median": statistics.median(
+                1e3 * (b["wall"] - a["wall"]) / (b["step"] - a["step"])
+                for h in (res["history"], res["history_resumed"])
+                for a, b in zip(h, h[1:])),
+            "loss_first": res["history"][0]["loss"],
+            "loss_last": res["history_resumed"][-1]["loss"], "verdict": "OK", "wall_s": wall}
+
+
+def train_phase(torch, card):
+    """Phase 3j: single-device training (``repro_torch.train``), K1-K4
+    launch counters zeroed before and asserted 0 after (training runs the
+    plain attention and scans: the kernels have no backward).  (a) fp32
+    qwen3-0.6b at full width and ``TRAIN_PARITY_LAYERS`` layers: one step's
+    loss and gradients card = CPU, AdamW and Adafactor updates card = CPU,
+    6 steps = 3 + checkpoint + resumed 3; (b) bf16 at all 28 layers, 30
+    steps, the loss drop and the step's time, rate, memory and model-FLOP
+    share; (c) deepseek-moe-16b fp32 at full width, 2 layers (dense0 and
+    one moe layer): loss, aux and gradients card = CPU; (d) train_mini."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.data.pipeline import as_tensors
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("train: fp32 parity needs TF32 off")
+    t0 = time.perf_counter()
+    zero_counters()
+    out = {"card": card}
+    f32 = dict(param_dtype="float32", activation_dtype="float32")
+    cfg = get_config("qwen3-0.6b").replace(num_layers=TRAIN_PARITY_LAYERS, **f32)
+    src = SyntheticTokens(cfg, batch=2, seq_len=64, seed=0)
+    part_s = out["part_s"] = {}
+
+    def lap(name, t):
+        part_s[name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    t = time.perf_counter()
+    rec, state, grads = card_vs_cpu(torch, cfg, 0, as_tensors(src.batch_at(0)), "qwen3 fp32")
+    t = lap("a_grads", t)
+    rec["optimizer"] = optimizer_card_vs_cpu(torch, cfg, state, grads)
+    del state, grads
+    t = lap("a_optimizer", t)
+    rec["resume"] = resume_on_card(torch, cfg, src)
+    t = lap("a_resume", t)
+    out["parity_fp32"] = {"model": cfg.name, "layers": cfg.num_layers, "batch": [2, 64], **rec}
+    log(f"[train] (a) qwen3-0.6b fp32 x{cfg.num_layers}: loss card {rec['loss_card']:.7f} "
+        f"CPU {rec['loss_cpu']:.7f}; worst gradient {rec['grad_err_of_scale']:.2e} of the "
+        f"largest; optimizer {rec['optimizer']}; 6 steps = 3 + resume + 3, "
+        f"{rec['resume']['bitwise_equal_leaves']} of {rec['resume']['leaves']} leaves bitwise")
+    out["bf16_full"] = train_full_width(torch, card)
+    t = lap("b", t)
+    b = out["bf16_full"]
+    log(f"[train] (b) qwen3-0.6b {b['dtype']} x{b['layers']}, 8 x 512, {b['steps']} steps: loss "
+        f"{b['loss_first']:.4f} -> {b['loss_last']:.4f}; step {b['step_ms_median']:.1f} ms "
+        f"(median after step 3), {b['tokens_per_s']:.0f} tokens/s, peak "
+        f"{b['peak_memory_gb']:.2f} GB, model-FLOP share {b['model_flop_share']:.4f}")
+    moe_cfg = get_config("deepseek-moe-16b").replace(num_layers=2, **f32)
+    moe_src = SyntheticTokens(moe_cfg, batch=2, seq_len=64, seed=0)
+    rec, _, _ = card_vs_cpu(torch, moe_cfg, 0, as_tensors(moe_src.batch_at(0)), "deepseek fp32")
+    out["moe_parity"] = {"model": moe_cfg.name, "layers": 2, "batch": [2, 64], **rec}
+    free_card(torch)
+    t = lap("c", t)
+    log(f"[train] (c) deepseek-moe-16b fp32 x2: loss card {rec['loss_card']:.7f} CPU "
+        f"{rec['loss_cpu']:.7f}, aux {rec['aux_card']:.7f} / {rec['aux_cpu']:.7f}; worst "
+        f"gradient {rec['grad_err_of_scale']:.2e} of the largest")
+    out["train_mini"] = train_mini_phase(torch)
+    lap("d", t)
+    launched = counters()
+    out["kernel_launches"] = launched
+    if any(launched.values()):
+        raise AssertionError(f"train: a kernel launched during training: {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"train": out}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the contiguous paths: rwkv6-7b and zamba2-7b
 # ---------------------------------------------------------------------------
 
@@ -2721,9 +3055,10 @@ def ssm_parity_phase(torch, cfg, device, trace):
                 worst_tie_gap=worst_gap)
 
 
-def scan_entry(name, source, replaces, launched, t, shape):
+def scan_entry(name, source, replaces, launched, t, shape, train_launched):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launched[name], "stage_launches": launched[name + "_stages"],
+            "launches_train_path": train_launched[name],
             "max_abs_err": t["max_abs_err"], "max_abs_err_sweep": t["max_abs_err_sweep"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -2852,6 +3187,8 @@ def main() -> int:
     elapsed("phase 3h (bench)")
     examples = examples_phase(torch, card)
     elapsed("phase 3i (examples)")
+    train = train_phase(torch, card)
+    elapsed("phase 3j (train)")
     for dt_name in ("float32", "bfloat16"):
         worst[dt_name] = max(worst[dt_name], tp_t[1][dt_name])
         flash_worst[dt_name] = max(flash_worst[dt_name], tp_t[2][dt_name])
@@ -2911,6 +3248,7 @@ def main() -> int:
         "launches_bench_path": {k: v["paged_decode"] for k, v in bench_launches.items()},
         "launches_examples_path": {k: v["kernel_launches"]["paged_decode"]
                                    for k, v in examples.items()},
+        "launches_train_path": train["kernel_launches"]["paged_decode"],
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -2950,6 +3288,7 @@ def main() -> int:
         "launches_bench_path": {k: v["flash_prefill"] for k, v in bench_launches.items()},
         "launches_examples_path": {k: v["kernel_launches"]["flash_prefill"]
                                    for k, v in examples.items()},
+        "launches_train_path": train["kernel_launches"]["flash_prefill"],
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,
         "ms": q_t["ms"],
@@ -2972,16 +3311,19 @@ def main() -> int:
     }, scan_entry("rwkv6_scan", "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",
                   ssm["rwkv6-7b"][0]["kernel_launches"], rwkv6_t,
-                  "B=1 T=512 H=64 N=64 bf16 r/k/v, f32 w/u/state"),
+                  "B=1 T=512 H=64 N=64 bf16 r/k/v, f32 w/u/state",
+                  train["kernel_launches"]),
         scan_entry("mamba2_ssd", "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
                    "src/repro/kernels/mamba2_ssd/kernel.py:86",
                    ssm["zamba2-7b"][0]["kernel_launches"], ssd_t,
-                   "B=1 T=512 H=112 P=64 N=64 bf16 x/B/C, f32 dt/A/D/state")]}))
+                   "B=1 T=512 H=112 P=64 N=64 bf16 x/B/C, f32 dt/A/D/state",
+                   train["kernel_launches"])]}))
 
     # -- phase 4: parity on the card -----------------------------------------
     for pipeline in (False, True):
-        log(json.dumps({"parity": parity_phase(torch, cfg, "cuda", trace,
-                                               pipeline=pipeline)}))
+        log(json.dumps({"parity": {**parity_phase(torch, serve_cfg, "cuda", trace,
+                                                  pipeline=pipeline),
+                                   "layers": serve_cfg.num_layers}}))
         torch.cuda.empty_cache()
     elapsed("phase 4 (qwen3-0.6b parity)")
     for arch, (_, ssm_trace, _) in ssm.items():
@@ -2989,6 +3331,7 @@ def main() -> int:
         log(json.dumps({"parity": {**ssm_parity_phase(torch, ssm_cfg, "cuda", ssm_trace),
                                    "layers": ssm_cfg.num_layers}}))
     log(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Configuration of the PyTorch port of the NEO engine.
 
-Every architecture is described by an :class:`ArchConfig` and the serving
-runtime by an :class:`EngineConfig`.  Both are plain frozen dataclasses so
+Every architecture is described by an :class:`ArchConfig`, the serving
+runtime by an :class:`EngineConfig` and a training run by a
+:class:`TrainConfig`.  All are plain frozen dataclasses so
 they hash, compare and print deterministically; architectures are registered
 by name in :mod:`repro_torch.configs` (``--arch <id>`` on every CLI).  The
 field set and defaults mirror the JAX package's config so both sides describe
@@ -309,3 +310,26 @@ class EngineConfig:
     # continuation of the most recent match is proposed.
     spec_ngram: int = 3
     seed: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Training config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"  # adamw | adafactor
+    grad_accum: int = 1
+    # Gradient compression for the DP all-reduce: "none" | "int8".
+    grad_compression: str = "none"
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3

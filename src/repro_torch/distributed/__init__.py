@@ -1,1 +1,2 @@
-"""Tensor parallelism of the serving engine (gather-TP)."""
+"""Tensor parallelism of the serving engine (gather-TP) and the gradient
+compression of training."""

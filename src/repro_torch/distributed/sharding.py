@@ -14,7 +14,9 @@ thread hold the shards' column slices, each on its shard's device (a list
 that may name one device more than once), launch each shard's work there,
 and concatenate onto the primary device, where the replicated layers run
 once.  The reference's logical-axis sharding rules (``ShardingContext``,
-``default_rules``) serve training and the dry run and are not ported here.
+``default_rules``) serve multi-device training and the dry run: ROADMAP
+P16b ports them.  Single-device training needs none of them (with no
+context every reference ``shard()`` is a no-op).
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ as ``python -m repro_torch.examples.<name>`` with ``main(argv=None)``:
 * :mod:`.serve_online` — Poisson OSC arrivals through ``engine.step(now=...)``,
   with ``--crash`` journal recovery;
 * :mod:`.capacity_planner` — the calibrated simulator's sustainable load,
-  NEO against GPU-only.
+  NEO against GPU-only;
+* :mod:`.train_mini` — a ~100M-parameter qwen3-family model trained for a
+  few hundred steps with a mid-run restart from its checkpoint.
 
 Each runs on the card unless given ``--device cpu`` (without a card it
 raises).  The engine examples serve the reference's smoke config by

@@ -1,1 +1,1 @@
-"""Serving launchers."""
+"""Launchers: serving (``serve``), training on one device (``train``)."""

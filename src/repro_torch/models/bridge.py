@@ -27,6 +27,11 @@ Leaves arrive as numpy arrays (the caller converts jax arrays with
 ``np.asarray``); leaf layouts are the same on both sides, so the bridge only
 renames and unstacks.  :func:`shard_state_dict` splits a state dict into
 the per-shard column slices of tensor-parallel serving.
+:func:`opt_state_from_reference` / :func:`opt_state_to_reference` carry an
+optimizer state across the same way: AdamW's ``{"m", "v"}`` and
+Adafactor's ``{"m", "v"}``, whose ``v`` leaf is ``{"row", "col"}`` for a
+factored parameter (the reference stacks the row and column moments of a
+stacked leaf as it stacks the leaf).
 """
 
 from __future__ import annotations
@@ -212,6 +217,71 @@ def params_to_reference(state: Mapping[str, torch.Tensor], cfg: ArchConfig) -> T
                                                  for g in range(n_groups)])
                       for j in range(per_group)}
     return tree
+
+
+def reference_stacks(names, cfg: ArchConfig) -> List[List[str]]:
+    """The port's parameter ``names`` grouped by the reference leaf that
+    holds them (a per-layer parameter sits in one leaf stacked over the
+    layers of its kind; an unstacked one is a group of its own), each group
+    in stacking order.  Adafactor takes its update clip over a reference
+    leaf, so over such a group."""
+    names = list(names)
+    ids = {n: torch.tensor(i) for i, n in enumerate(names)}
+    groups: List[List[str]] = []
+
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, Mapping):
+                walk(v)
+            else:
+                groups.append([names[int(i)] for i in np.ravel(v)])
+
+    walk(params_to_reference(ids, cfg))
+    return groups
+
+
+def _is_factored(leaf) -> bool:
+    return isinstance(leaf, Mapping) and set(leaf) == {"row", "col"}
+
+
+def _pick(tree: Mapping[str, Any], part: str) -> Tree:
+    """``tree`` with each factored ``{"row", "col"}`` leaf replaced by its
+    ``part``."""
+    return {k: (v[part] if _is_factored(v) else _pick(v, part)) if isinstance(v, Mapping)
+            else v for k, v in tree.items()}
+
+
+def opt_state_from_reference(state: Mapping[str, Any], cfg: ArchConfig) -> Dict[str, Any]:
+    """A reference optimizer state (``{"m", "v"}`` over the reference's
+    parameter tree) -> the port's (``{"m", "v"}`` keyed by the port's
+    parameter names, CPU tensors).  A port leaf of ``v`` is factored
+    (``{"row", "col"}``) where the reference's is."""
+    m = params_from_reference(state["m"], cfg)
+    rows = params_from_reference(_pick(state["v"], "row"), cfg)
+    cols = params_from_reference(_pick(state["v"], "col"), cfg)
+    # a row moment has one axis fewer than its parameter (and its m)
+    v = {k: {"row": rows[k], "col": cols[k]} if rows[k].ndim != m[k].ndim else rows[k]
+         for k in rows}
+    return {"m": m, "v": v}
+
+
+def opt_state_to_reference(state: Mapping[str, Any], cfg: ArchConfig) -> Tree:
+    """The inverse of :func:`opt_state_from_reference`: numpy leaves (a
+    bfloat16 moment as float32, which holds it exactly) in the reference's
+    tree."""
+    v = state["v"]
+    m = params_to_reference(state["m"], cfg)
+    rows = params_to_reference({k: t["row"] if _is_factored(t) else t for k, t in v.items()},
+                               cfg)
+    cols = params_to_reference({k: t["col"] if _is_factored(t) else t for k, t in v.items()},
+                               cfg)
+
+    def join(m_, r_, c_):
+        if not isinstance(m_, Mapping):
+            return {"row": r_, "col": c_} if r_.ndim != m_.ndim else r_
+        return {k: join(m_[k], r_[k], c_[k]) for k in m_}
+
+    return {"m": m, "v": join(m, rows, cols)}
 
 
 def load_reference_params(model: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.Module:

@@ -15,7 +15,8 @@ Parameters keep the reference's names and layouts; the stacked
 ``enc_blocks`` / ``dec_blocks`` of the reference are ``nn.ModuleList``\\ s
 here (:mod:`repro_torch.models.bridge` unstacks them).  The cache is the
 reference's dict: ``k``/``v`` [L, B, capacity, KV, hd], ``ck``/``cv``
-[L, B, F, KV, hd], ``lens`` and ``enc_lens`` [B].
+[L, B, F, KV, hd], ``lens`` and ``enc_lens`` [B].  The training loss
+(:meth:`EncDecLM.loss`) runs every attention plain.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ from repro_torch.models.layers import (
     embed_lookup,
     init_mlp,
     logits_last,
+    maybe_remat,
     mlp_params,
     param,
     rms_norm,
+    softmax_xent,
     swiglu_apply,
     zeros_cache,
 )
@@ -130,16 +133,50 @@ class EncDecLM(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     # -- encoder -----------------------------------------------------------------
-    def encode(self, frames: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
-        """frames [B, F, d] (the stubbed frontend's) -> memory [B, F, d]."""
+    def _enc_layer(self, blk: EncLayer, x: torch.Tensor, impl: str) -> torch.Tensor:
         cfg = self.cfg
+        o, _, _ = attn_full(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.rms_eps),
+                            causal=False, impl=impl)
+        x = x + o
+        return x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps))
+
+    def encode(self, frames: torch.Tensor, impl: str = "kernel",
+               remat: str = "none") -> torch.Tensor:
+        """frames [B, F, d] (the stubbed frontend's) -> memory [B, F, d];
+        each layer checkpointed under ``remat`` (a ``remat_policy``)."""
         x = torch.as_tensor(frames).to(self.device, self.act_dtype) @ self.frame_in
         for blk in self.enc_blocks:
-            o, _, _ = attn_full(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.rms_eps),
-                                causal=False, impl=impl)
-            x = x + o
-            x = x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps))
-        return rms_norm(x, self.enc_norm, cfg.rms_eps)
+            x = maybe_remat(lambda x, blk=blk: self._enc_layer(blk, x, impl), remat)(x)
+        return rms_norm(x, self.enc_norm, self.cfg.rms_eps)
+
+    # -- train -------------------------------------------------------------------
+    def _dec_layer(self, blk: EncLayer, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """One decoder layer of the training loss: causal self attention,
+        cross attention over ``memory``, SwiGLU; all plain."""
+        cfg = self.cfg
+        o, _, _ = attn_full(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.rms_eps),
+                            causal=True, impl="plain")
+        x = x + o
+        ck, cv = _heads(memory, blk.cross["wk"]), _heads(memory, blk.cross["wv"])
+        q = _heads(rms_norm(x, blk.ln_c, cfg.rms_eps), blk.cross["wq"])
+        x = x + out_proj(blk.cross, attn_lib.chunked_attention(q, ck, cv, causal=False))
+        return x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps))
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """The reference's training loss: the encoder over ``frames``
+        [B, F, d], then the decoder over ``tokens`` against ``targets`` and
+        ``loss_mask``, every layer checkpointed under ``remat_policy`` and
+        every attention plain.  Returns (xent, {"xent", "aux": 0})."""
+        cfg, dev = self.cfg, self.device
+        memory = self.encode(batch["frames"], impl="plain", remat=cfg.remat_policy)
+        x = embed_lookup(self.embed, batch["tokens"].to(dev)).to(self.act_dtype)
+        for blk in self.dec_blocks:
+            x = maybe_remat(lambda x, mem, blk=blk: self._dec_layer(blk, x, mem),
+                            cfg.remat_policy)(x, memory)
+        x = rms_norm(x, self.final_norm, cfg.rms_eps)
+        xent, _ = softmax_xent(x, self.unembed, batch["targets"].to(dev),
+                               batch["loss_mask"].to(dev))
+        return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     # -- cache -------------------------------------------------------------------
     def cache_shape(self, batch: int, capacity: int):

@@ -1,5 +1,6 @@
 """Shared building blocks: norms, rotary embeddings, the SwiGLU MLP,
-embedding lookup, logits, the initialisers, and the parameter and cache
+embedding lookup, logits, the training loss's chunked cross entropy and
+activation checkpointing, the initialisers, and the parameter and cache
 helpers the models share.
 
 Plain functions on tensors.  Weight layouts follow the JAX package
@@ -11,15 +12,19 @@ taken in float32 and cast back, as the reference does.
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import torch_dtype
 
 Params = Mapping[str, torch.Tensor]
+
+# weight of the MoE load-balance loss in the training loss, per layer
+AUX_LOSS_WEIGHT = 1e-2
 
 
 # ---------------------------------------------------------------------------
@@ -29,7 +34,8 @@ Params = Mapping[str, torch.Tensor]
 
 def param(shape: Sequence[int], dtype: torch.dtype, device) -> nn.Parameter:
     """An uninitialised, frozen parameter (weights come from ``init`` or a
-    loaded state dict)."""
+    loaded state dict).  Serving never needs gradients; only the trainer
+    (:mod:`repro_torch.train.trainer`) makes parameters trainable."""
     return nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -180,10 +186,78 @@ def swiglu_apply(p: Params, x: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """table: [vocab, d_model]; tokens: int [...] -> [..., d_model]."""
-    return table[tokens.long()]
+    """table: [vocab, d_model]; tokens: int [...] -> [..., d_model].  A
+    gather; its backward (``embedding_dense_backward``) is deterministic,
+    where indexing's accumulating scatter is not on the CPU."""
+    return F.embedding(tokens.long(), table)
 
 
 def logits_last(hidden_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
     """hidden_last: [B, d] -> float32 logits [B, vocab]."""
     return (hidden_last @ unembed).float()
+
+
+# ---------------------------------------------------------------------------
+# Training: activation checkpointing and the chunked cross entropy
+# ---------------------------------------------------------------------------
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``"minimal"``'s rule: keep the 2-D weight products (``aten.mm``) and
+    recompute everything else, batched products (``aten.bmm``) included."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the arch's activation-checkpointing policy, the
+    reference's ``maybe_remat``: ``"none"`` stores every activation,
+    ``"full"`` recomputes the whole body in the backward pass, and
+    ``"minimal"`` saves the unbatched weight products only (the
+    counterpart of ``dots_with_no_batch_dims_saveable``).  ``"sp_save"``
+    keeps the sequence-parallel all-gathers, which exist only on a mesh."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if policy == "minimal":
+        def contexts():
+            return ckpt.create_selective_checkpoint_contexts(_save_weight_products)
+
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          context_fn=contexts)
+    if policy == "sp_save":
+        raise NotImplementedError(
+            "remat_policy 'sp_save' saves sequence-parallel all-gathers, which run "
+            "only under a mesh: multi-device training is ROADMAP P16b")
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
+def _chunk_xent(h: torch.Tensor, unembed: torch.Tensor, t: torch.Tensor,
+                m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = (h @ unembed).float()  # [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, t.long()[..., None])[..., 0]
+    return ((lse - gold) * m).sum(), m.sum()
+
+
+def softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor, targets: torch.Tensor,
+                 mask: torch.Tensor, chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-mean cross entropy over ``mask`` without the whole [B, S, V]
+    logits: hidden [B, S, d], unembed [d, V], targets [B, S] int, mask
+    [B, S] float.  The sequence goes in chunks of ``chunk`` (a tail shorter
+    than a chunk is left out, as the reference leaves it), each chunk's
+    float32 logits recomputed in the backward pass instead of stored.
+    Returns (loss, total weight), the weight at least 1."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    losses, weights = [], []
+    for c0 in range(0, max(S // chunk, 1) * chunk, chunk):
+        sl = slice(c0, c0 + chunk)
+        loss, w = ckpt.checkpoint(_chunk_xent, hidden[:, sl], unembed, targets[:, sl],
+                                  mask[:, sl], use_reentrant=False)
+        losses.append(loss)
+        weights.append(w)
+    total_w = torch.clamp(torch.stack(weights).sum(), min=1.0)
+    return torch.stack(losses).sum() / total_w, total_w

@@ -14,7 +14,8 @@ Every prefill runs the chunked scan once per layer: ``impl="kernel"`` (the
 default) calls :func:`repro_torch.kernels.rwkv6_scan.rwkv6_scan`, which
 launches the CUDA kernel for tensors on the card and takes the plain version
 for tensors on the CPU; ``impl="plain"`` calls the plain version on either,
-as the card's parity oracle does.
+as the card's parity oracle does.  The training loss (:meth:`RWKV6LM.loss`)
+takes the plain version, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ from repro_torch.models.layers import (
     embed_lookup,
     group_norm_heads,
     logits_last,
+    maybe_remat,
     param,
     rms_norm,
+    softmax_xent,
     zeros_cache,
 )
 
@@ -222,9 +225,20 @@ class RWKV6LM(nn.Module):
         return self._channel_mix(p, x, prev - x), x[:, -1]
 
     # -- full-sequence forward ---------------------------------------------------
+    def _layer_seq(self, blk: RWKV6Block, x, s0, tm_prev, cm_prev, impl: str):
+        """One layer over x [B, T, d]; returns (x, final state, last x of
+        the time mix's and of the channel mix's inputs)."""
+        cfg = self.cfg
+        o, sT, tm_last = self._time_mix_seq(blk, rms_norm(x, blk.ln1, cfg.rms_eps), s0,
+                                            tm_prev, impl)
+        x = x + o
+        m, cm_last = self._channel_mix_seq(blk, rms_norm(x, blk.ln2, cfg.rms_eps), cm_prev)
+        return x + m, sT, tm_last, cm_last
+
     def _forward_seq(self, tokens: torch.Tensor, state: Optional[Cache] = None,
-                     impl: str = "kernel") -> Tuple[torch.Tensor, Cache]:
-        """Returns (hidden [B, T, d], new state)."""
+                     impl: str = "kernel", remat: str = "none") -> Tuple[torch.Tensor, Cache]:
+        """Returns (hidden [B, T, d], new state); each layer checkpointed
+        under ``remat`` (a ``remat_policy``)."""
         cfg = self.cfg
         B, T = tokens.shape
         x = rms_norm(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),
@@ -233,19 +247,28 @@ class RWKV6LM(nn.Module):
             state = self.init_cache(B, 0)
         states, tms, cms = [], [], []
         for i, blk in enumerate(self.blocks):
-            h = rms_norm(x, blk.ln1, cfg.rms_eps)
-            o, sT, tm_last = self._time_mix_seq(blk, h, state["state"][i],
-                                                state["tm_prev"][i], impl)
-            x = x + o
-            h2 = rms_norm(x, blk.ln2, cfg.rms_eps)
-            m, cm_last = self._channel_mix_seq(blk, h2, state["cm_prev"][i])
-            x = x + m
+            layer = maybe_remat(lambda *a, blk=blk: self._layer_seq(blk, *a, impl), remat)
+            x, sT, tm_last, cm_last = layer(x, state["state"][i], state["tm_prev"][i],
+                                            state["cm_prev"][i])
             states.append(sT)
             tms.append(tm_last)
             cms.append(cm_last)
         new_state = {"state": torch.stack(states), "tm_prev": torch.stack(tms),
                      "cm_prev": torch.stack(cms), "lens": state["lens"] + T}
         return x, new_state
+
+    # -- train -------------------------------------------------------------------
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """The reference's training loss (``tokens``, ``targets``,
+        ``loss_mask``): the plain chunked scan, each layer checkpointed under
+        ``remat_policy``, then the chunked cross entropy.  Returns (xent,
+        {"xent", "aux": 0})."""
+        cfg = self.cfg
+        x, _ = self._forward_seq(batch["tokens"], impl="plain", remat=cfg.remat_policy)
+        x = rms_norm(x, self.final_norm, cfg.rms_eps)
+        xent, _ = softmax_xent(x, self.unembed, batch["targets"].to(self.device),
+                               batch["loss_mask"].to(self.device))
+        return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     # -- serve -------------------------------------------------------------------
     @torch.inference_mode()

@@ -16,7 +16,10 @@ with ``kv_cache_dtype="int8"`` over the quantised cache) and, for
 prefix-cache hits, :meth:`DenseLM.prefill_with_prefix` (the suffix over a
 cached prefix gathered from the device pool) and
 :meth:`DenseLM.prefill_with_host_prefix` (the suffix over a prefix the host
-serves in place, through a per-layer callback).
+serves in place, through a per-layer callback).  Training calls
+:meth:`DenseLM.loss`: the plain attention (the kernels have no backward),
+the reference's remat unit and its chunked cross entropy plus the MoE
+load-balance loss.
 
 Tensor-parallel serving (gather-TP, :mod:`repro_torch.distributed.sharding`)
 passes ``shards``: per layer, one dict per shard of its column slices
@@ -40,6 +43,7 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.distributed.sharding import tp_allgather
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
+    AUX_LOSS_WEIGHT,
     PREFILL_MIN_ROWS,
     apply_rope,
     dense_init,
@@ -47,10 +51,12 @@ from repro_torch.models.layers import (
     embed_lookup,
     init_mlp,
     logits_last,
+    maybe_remat,
     mlp_params,
     param,
     rms_norm,
     rows_matmul,
+    softmax_xent,
     swiglu_apply,
     swiglu_hidden,
     zeros_cache,
@@ -170,6 +176,15 @@ def quantize_kv(k: torch.Tensor, v: torch.Tensor):
     return kq, vq, ks, vs
 
 
+def mlp_apply_aux(blk: "Block", x: torch.Tensor, shards: Optional[Shards] = None,
+                  min_rows: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mlp_apply` on x [B, S, d] with the MoE's load-balance loss
+    (a float32 zero for a SwiGLU layer), as the reference's ``_mlp_apply``."""
+    if blk.kind == "moe":
+        return moe_apply(blk.moe, x, blk.moe.cfg)
+    return mlp_apply(blk, x, shards, min_rows), x.new_zeros((), dtype=torch.float32)
+
+
 def mlp_apply(blk: "Block", x: torch.Tensor,
               shards: Optional[Shards] = None, min_rows: int = 0) -> torch.Tensor:
     """The layer's FFN: SwiGLU, or the MoE for a ``moe`` layer.  A 2-D
@@ -218,8 +233,8 @@ class Block(nn.Module):
 
     def full(self, cfg: ArchConfig, x: torch.Tensor, impl: str = "kernel",
              shards: Optional[Shards] = None):
-        """Causal full-sequence layer; returns (x, roped k, v), with
-        ``shards`` the per-shard lists of k and v."""
+        """Causal full-sequence layer; returns (x, roped k, v, the MoE's
+        load-balance loss), with ``shards`` the per-shard lists of k and v."""
         h = rms_norm(x, self.ln1, cfg.rms_eps)
         rows = PREFILL_MIN_ROWS
         if shards is None:
@@ -227,8 +242,8 @@ class Block(nn.Module):
         else:
             o, k, v = attn_full_tp(self.attn, shards, cfg, h, impl=impl, min_rows=rows)
         x = x + o
-        x = x + mlp_apply(self, rms_norm(x, self.ln2, cfg.rms_eps), shards, rows)
-        return x, k, v
+        m, aux = mlp_apply_aux(self, rms_norm(x, self.ln2, cfg.rms_eps), shards, rows)
+        return x + m, k, v, aux
 
 
 class DenseLM(nn.Module):
@@ -303,6 +318,39 @@ class DenseLM(nn.Module):
             x = torch.cat([pe, x[:, P:]], dim=1)
         return x
 
+    # -- train ---------------------------------------------------------------
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """The reference's training loss: ``batch`` holds ``tokens``,
+        ``targets`` [B, S] int, ``loss_mask`` [B, S] float and, for a vlm,
+        ``patch_embeds``.  Every layer runs the plain attention
+        (:func:`~repro_torch.models.attention.chunked_attention`: the kernels
+        have no backward); the layers after the prefix go in groups of the
+        reference's repeated pattern, each group checkpointed under
+        ``remat_policy``.  Returns (xent + AUX_LOSS_WEIGHT * aux /
+        num_layers, {"xent", "aux"}), aux the MoE layers' summed
+        load-balance loss."""
+        cfg, dev = self.cfg, self.device
+        prefix, group, _ = layer_pattern(cfg)
+        x = self._embed_prompt(batch["tokens"], batch.get("patch_embeds"))
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def run(layers, x, aux):
+            for blk in layers:
+                x, _, _, a = blk.full(cfg, x, impl="plain")
+                aux = aux + a
+            return x, aux
+
+        P, r = len(prefix), len(group)
+        x, aux = run(self.layers[:P], x, aux)
+        for g0 in range(P, cfg.num_layers, r):
+            x, aux = maybe_remat(lambda x, aux, g0=g0: run(self.layers[g0:g0 + r], x, aux),
+                                 cfg.remat_policy)(x, aux)
+        x = rms_norm(x, self.final_norm, cfg.rms_eps)
+        xent, _ = softmax_xent(x, self.unembed_matrix(), batch["targets"].to(dev),
+                               batch["loss_mask"].to(dev))
+        loss = xent + AUX_LOSS_WEIGHT * aux / max(cfg.num_layers, 1)
+        return loss, {"xent": xent, "aux": aux}
+
     # -- serve: cache --------------------------------------------------------
     def cache_shape(self, batch: int, capacity: int):
         """{name: (shape, dtype name, logical axes)} of the contiguous cache:
@@ -351,7 +399,7 @@ class DenseLM(nn.Module):
         x = self._embed_prompt(tokens, patch_embeds)
         ks, vs = [], []
         for i, blk in enumerate(self.layers):
-            x, k, v = blk.full(self.cfg, x, impl, None if shards is None else shards[i])
+            x, k, v, _ = blk.full(self.cfg, x, impl, None if shards is None else shards[i])
             ks.append(k)
             vs.append(v)
         lens = self._row_lens(B, S, true_lens)

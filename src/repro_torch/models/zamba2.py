@@ -15,6 +15,8 @@ of the reference's ``mamba_groups`` [G, per_group, ...] and ``mamba_tail``
 [tail, ...] stacks, which :mod:`repro_torch.models.bridge` unstacks.  The
 cache is the reference's dict (``ssm`` [L, B, H, N, P] f32, ``conv``
 [L, B, conv_dim, K-1] f32, ``k``/``v`` [A, B, capacity, KV, hd], ``lens``).
+The training loss (:meth:`Zamba2LM.loss`) runs the plain SSD scan and
+attention, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -34,9 +36,11 @@ from repro_torch.models.layers import (
     embed_lookup,
     init_mlp,
     logits_last,
+    maybe_remat,
     mlp_params,
     param,
     rms_norm,
+    softmax_xent,
     swiglu_apply,
     zeros_cache,
 )
@@ -186,6 +190,30 @@ class Zamba2LM(nn.Module):
         if self.tail:
             apps.append((G, range(G * r, self.cfg.num_layers)))
         return apps
+
+    # -- train -------------------------------------------------------------------
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """The reference's training loss (``tokens``, ``targets``,
+        ``loss_mask``): the shared attention (plain, causal) before each
+        group, every Mamba2 block from a zero state through the plain SSD
+        scan and checkpointed under ``remat_policy``, as the reference's
+        ``mamba_chain``; then the chunked cross entropy.  Returns (xent,
+        {"xent", "aux": 0})."""
+        cfg, dev = self.cfg, self.device
+        B = batch["tokens"].shape[0]
+        x = embed_lookup(self.embed, batch["tokens"].to(dev)).to(self.act_dtype)
+        x0 = x
+        for _, blocks in self._schedule():
+            x, _, _ = self.shared.seq(cfg, x, x0, impl="plain")
+            for i in blocks:
+                m = self.mamba[i]
+                state = zeros_cache(m.state_shape(B), dev)
+                x = maybe_remat(lambda x, m=m, st=state: m.apply_seq(x, st, impl="plain")[0],
+                                cfg.remat_policy)(x)
+        x = rms_norm(x, self.final_norm, cfg.rms_eps)
+        xent, _ = softmax_xent(x, self.unembed, batch["targets"].to(dev),
+                               batch["loss_mask"].to(dev))
+        return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     # -- serve -------------------------------------------------------------------
     @torch.inference_mode()

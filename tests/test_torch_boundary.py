@@ -47,7 +47,11 @@ for n in ("repro_torch.core.transfer", "repro_torch.core.prefix_cache",
           "repro_torch.analysis.graph", "repro_torch.analysis.rules",
           "repro_torch.analysis.roles", "repro_torch.analysis.baseline",
           "repro_torch.analysis.report", "repro_torch.examples.quickstart",
-          "repro_torch.examples.serve_online", "repro_torch.examples.capacity_planner"):
+          "repro_torch.examples.serve_online", "repro_torch.examples.capacity_planner",
+          "repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.trainer",
+          "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+          "repro_torch.distributed.collectives", "repro_torch.launch.train",
+          "repro_torch.examples.train_mini"):
     assert n in names, n
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -169,16 +169,27 @@ Phases, each of which fails the run by raising:
              6 steps in one run against 3 + checkpoint + a fresh Trainer
              resumed + 3 within 2e-5 (bitwise-equal leaves counted); (b)
              qwen3-0.6b, all 28 layers, bf16, AdamW, remat "full", batch
-             8 x 512, 30 steps at lr 1e-3 (3 warmup): finite losses that
+             8 x 512, 20 steps at lr 1e-3 (3 warmup): finite losses that
              drop by more than 1.0, the median step time after step 3,
              tokens/s, peak memory and the model-FLOP share (a record);
              (c) deepseek-moe-16b at full width, 2 layers (dense0 + one moe
              layer), fp32: loss, aux and gradients card = CPU, the only
              card check of the scatter dispatch's backward; (d)
              ``repro_torch.examples.train_mini`` at its defaults but
-             ``--steps`` (``TRAIN_MINI_STEPS`` = 50 of 300, for time; 64 M
+             ``--steps`` (``TRAIN_MINI_STEPS`` = 30 of 300, for time; 64 M
              fp32 parameters): it resumes from its checkpoint and prints
              OK;
+3k. mesh   — multi-device training's path on a world of one: an ``nccl``
+             group of one rank, a 1 x 1 data x model ``DeviceMesh`` and a
+             ``ShardingContext`` (K1-K4 launch 0 times, asserted): (a)
+             full-width qwen3-0.6b at ``MESH_LAYERS`` = 4 layers in fp32,
+             batch 2 x 64: the loss and every gradient through DTensor
+             parameters bitwise equal to the no-context path's, then one
+             AdamW step with the ZeRO layout bitwise equal to the
+             single-device step (parameters and both moments); (b)
+             ``int8_allreduce_mean`` over the mesh's data axis bitwise its
+             numpy oracle.  A failed ``nccl`` start or collective fails
+             the script;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
@@ -191,7 +202,8 @@ Phases, each of which fails the run by raising:
 
 Output: the card line (nvidia-smi name, power limit), per-case kernel
 lines, the serve summaries, the traced phases' and the busy-share lines,
-the ``{"train": {...}}`` line, one ``{"kernels": [...]}`` line, the parity
+the ``{"train": {...}}`` and ``{"mesh_train": {...}}`` lines, one
+``{"kernels": [...]}`` line, the parity
 counts, the card line again and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero and
 prints no result.  It imports nothing of the JAX package.
@@ -2621,9 +2633,12 @@ def examples_phase(torch, card, *, n=EXAMPLES_N):
 # ---------------------------------------------------------------------------
 
 TRAIN_PARITY_LAYERS = 4  # depth of 3j (a)'s fp32 parity (full width)
-TRAIN_STEPS = 30  # 3j (b): bf16 qwen3-0.6b, all 28 layers, batch 8 x 512
-# 3j (d): train_mini's steps, cut from its default 300 for time (PERF.md §4)
-TRAIN_MINI_STEPS = 50
+# 3j (b): bf16 qwen3-0.6b, all 28 layers, batch 8 x 512; cut from 30 steps
+# to make room for phase 3k (PERF.md §4)
+TRAIN_STEPS = 20
+# 3j (d): train_mini's steps, cut from its default 300 for time, and from
+# 50 for phase 3k (PERF.md §4)
+TRAIN_MINI_STEPS = 30
 LOSS_RTOL = 1e-5  # 3j (a), (c): card vs CPU loss, as the CPU tests hold port to reference
 GRAD_TOL = 1e-4  # ... each leaf's gradient within this of the largest entry
 OPT_TOL = 1e-6  # ... the optimizer update, of each leaf's largest entry
@@ -2929,6 +2944,125 @@ def train_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3k: multi-device training's path on a world of one
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS = TRAIN_PARITY_LAYERS  # 3k: qwen3-0.6b fp32 at full width, this deep
+
+
+def _same(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def mesh_train_phase(torch, card):
+    """Phase 3k: the sharded training path (``ShardingContext`` on a
+    ``DeviceMesh``, DTensor parameters, ZeRO) on a world-of-one ``nccl``
+    group and a 1 x 1 data x model mesh, K1-K4 counters zeroed before and
+    asserted 0 after.  (a) qwen3-0.6b fp32 at full width and
+    ``MESH_LAYERS`` layers: loss and gradients through the DTensor path
+    bitwise equal to the no-context path's, then one ZeRO AdamW step
+    bitwise equal to the single-device step (parameters and moments);
+    (b) ``int8_allreduce_mean`` over the mesh's data axis bitwise its numpy
+    oracle.  No fallback: a failed ``nccl`` start or collective fails the
+    script."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.data.pipeline import as_tensors
+    from repro_torch.distributed.collectives import int8_allreduce_mean
+    from repro_torch.distributed.sharding import (ShardingContext, activate, distribute_params,
+                                                  full_tensor as full)
+    from repro_torch.launch.mesh import free_port
+    from repro_torch.models.api import get_model
+    from repro_torch.train import Trainer
+    from repro_torch.train.trainer import trainable, value_and_grad
+
+    t0 = time.perf_counter()
+    zero_counters()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    out = {"card": card, "backend": dist.get_backend(), "world": dist.get_world_size()}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = get_config("qwen3-0.6b").replace(num_layers=MESH_LAYERS, param_dtype="float32",
+                                               activation_dtype="float32")
+        ctx = ShardingContext.for_arch(cfg, mesh)
+        src = SyntheticTokens(cfg, batch=2, seq_len=64, seed=0)
+        batch = {k: v.to("cuda") for k, v in as_tensors(src.batch_at(0)).items()}
+
+        def model():
+            return seeded(torch, get_model(cfg, device="cuda"), 0)
+
+        plain = model()
+        l0, _, g0 = value_and_grad(plain, trainable(plain), batch)
+        del plain
+        sharded = model()
+        t = time.perf_counter()
+        with activate(ctx):
+            distribute_params(sharded, ctx)
+            l1, _, g1 = value_and_grad(
+                sharded, trainable(sharded),
+                {k: ctx.distribute(v, ("batch", None)) for k, v in batch.items()})
+            g1 = {k: full(g) for k, g in g1.items()}
+            l1 = full(l1)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t
+        del sharded
+        unequal = [k for k in g0 if not _same(torch, g0[k], g1[k])]
+        if not _same(torch, l0, l1) or unequal:
+            raise AssertionError(f"mesh: 1 x 1 loss {float(l1)} vs {float(l0)}, gradients "
+                                 f"not bitwise: {unequal[:5]}")
+        out["grads"] = {"loss": float(l0), "leaves": len(g0), "bitwise_equal_leaves": len(g0),
+                        "mesh_grad_s": grad_s}
+        del g0, g1
+        tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+        one = Trainer(model(), tc)
+        h0 = one.train(iter([src.batch_at(1)]), 1, log_every=1)
+        with activate(ctx):
+            two = Trainer(model(), tc)
+            h1 = two.train(iter([src.batch_at(1)]), 1, log_every=1)
+            p1 = {k: full(p.detach()) for k, p in two.params.items()}
+            m1 = {part: {k: full(v) for k, v in two.opt_state[part].items()}
+                  for part in ("m", "v")}
+        bad = [k for k, p in one.params.items() if not _same(torch, p.detach(), p1[k])]
+        bad += [f"{part}/{k}" for part in ("m", "v") for k, v in one.opt_state[part].items()
+                if not _same(torch, v, m1[part][k])]
+        if bad or h0[0]["loss"] != h1[0]["loss"] or h0[0]["grad_norm"] != h1[0]["grad_norm"]:
+            raise AssertionError(f"mesh: the 1 x 1 ZeRO AdamW step is not the single-device "
+                                 f"step bit for bit: {bad[:5]}, {h0} vs {h1}")
+        out["zero_step"] = {"loss": h0[0]["loss"], "grad_norm": h0[0]["grad_norm"],
+                            "bitwise_equal_leaves": len(p1) + 2 * len(p1)}
+        del one, two, p1, m1
+        free_card(torch)
+        rng = np.random.default_rng(7)
+        g = rng.standard_normal((1024, 1024)).astype(np.float32)
+        got = int8_allreduce_mean({"g": torch.from_numpy(g).cuda()}, mesh, ("data",))["g"]
+        scale = np.float32(np.abs(g).max()) / np.float32(127.0) + np.float32(1e-12)
+        q = np.clip(np.rint(g / scale), -127, 127).astype(np.int8).astype(np.int32)
+        want = (q.astype(np.float32) * scale / np.float32(1)).astype(np.float32)
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError("mesh: int8_allreduce_mean on the card off its numpy oracle")
+        out["int8_allreduce_mean"] = {"shape": [1024, 1024], "bitwise_equal_to_oracle": True}
+    finally:
+        dist.destroy_process_group()
+    launched = counters()
+    out["kernel_launches"] = launched
+    if any(launched.values()):
+        raise AssertionError(f"mesh: a kernel launched on the sharded training path: {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] (a) qwen3-0.6b fp32 x{MESH_LAYERS} on a 1 x 1 nccl mesh: loss "
+        f"{out['grads']['loss']:.7f} and {out['grads']['leaves']} gradients bitwise = no "
+        f"context; ZeRO AdamW step bitwise = one device; (b) int8_allreduce_mean = numpy "
+        f"oracle; K1-K4 0; {out['seconds']:.1f} s")
+    log(json.dumps({"mesh_train": out}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the contiguous paths: rwkv6-7b and zamba2-7b
 # ---------------------------------------------------------------------------
 
@@ -3055,10 +3189,11 @@ def ssm_parity_phase(torch, cfg, device, trace):
                 worst_tie_gap=worst_gap)
 
 
-def scan_entry(name, source, replaces, launched, t, shape, train_launched):
+def scan_entry(name, source, replaces, launched, t, shape, train_launched, mesh_launched):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launched[name], "stage_launches": launched[name + "_stages"],
             "launches_train_path": train_launched[name],
+            "launches_mesh_train_path": mesh_launched[name],
             "max_abs_err": t["max_abs_err"], "max_abs_err_sweep": t["max_abs_err_sweep"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -3189,6 +3324,8 @@ def main() -> int:
     elapsed("phase 3i (examples)")
     train = train_phase(torch, card)
     elapsed("phase 3j (train)")
+    mesh_train = mesh_train_phase(torch, card)
+    elapsed("phase 3k (mesh train)")
     for dt_name in ("float32", "bfloat16"):
         worst[dt_name] = max(worst[dt_name], tp_t[1][dt_name])
         flash_worst[dt_name] = max(flash_worst[dt_name], tp_t[2][dt_name])
@@ -3249,6 +3386,7 @@ def main() -> int:
         "launches_examples_path": {k: v["kernel_launches"]["paged_decode"]
                                    for k, v in examples.items()},
         "launches_train_path": train["kernel_launches"]["paged_decode"],
+        "launches_mesh_train_path": mesh_train["kernel_launches"]["paged_decode"],
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -3289,6 +3427,7 @@ def main() -> int:
         "launches_examples_path": {k: v["kernel_launches"]["flash_prefill"]
                                    for k, v in examples.items()},
         "launches_train_path": train["kernel_launches"]["flash_prefill"],
+        "launches_mesh_train_path": mesh_train["kernel_launches"]["flash_prefill"],
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,
         "ms": q_t["ms"],
@@ -3312,12 +3451,12 @@ def main() -> int:
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",
                   ssm["rwkv6-7b"][0]["kernel_launches"], rwkv6_t,
                   "B=1 T=512 H=64 N=64 bf16 r/k/v, f32 w/u/state",
-                  train["kernel_launches"]),
+                  train["kernel_launches"], mesh_train["kernel_launches"]),
         scan_entry("mamba2_ssd", "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
                    "src/repro/kernels/mamba2_ssd/kernel.py:86",
                    ssm["zamba2-7b"][0]["kernel_launches"], ssd_t,
                    "B=1 T=512 H=112 P=64 N=64 bf16 x/B/C, f32 dt/A/D/state",
-                   train["kernel_launches"])]}))
+                   train["kernel_launches"], mesh_train["kernel_launches"])]}))
 
     # -- phase 4: parity on the card -----------------------------------------
     for pipeline in (False, True):

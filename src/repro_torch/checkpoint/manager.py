@@ -12,6 +12,13 @@ is flattened to one npz entry per leaf, its key path joined by ``"\\x1d"``.
 numpy has no bfloat16 of its own, so a bfloat16 leaf is stored as its
 ``uint16`` bit pattern and restored through the template's dtype, bit for
 bit.
+
+On a mesh (SPMD, one process per rank) every rank calls :meth:`save` and
+:meth:`restore`: the DTensor leaves are gathered whole (``full_tensor``),
+rank 0 alone writes and publishes, and the ranks meet at a barrier; on
+restore every rank reads the files and lays each leaf out as its template
+is laid out.  The files are the single-device format, so a checkpoint made
+on one device resumes on a mesh and the other way round.
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.distributed.sharding import full_tensor
 
 Tree = Mapping[str, Any]
 
@@ -40,8 +51,17 @@ def _flatten(tree: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return flat
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    t = full_tensor(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -52,6 +72,9 @@ def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
+    if isinstance(like, DTensor):
+        return distribute_tensor(t.to(like.to_local().device, like.dtype), like.device_mesh,
+                                 like.placements, src_data_rank=None)
     return t.to(like.device, like.dtype)
 
 
@@ -90,12 +113,16 @@ class CheckpointManager:
              extra: Optional[Dict[str, Any]] = None) -> str:
         tmp = os.path.join(self.dir, f".tmp_{step:08d}")
         final = self._step_dir(step)
+        arrays = {name: {k: _to_numpy(t) for k, t in _flatten(tree).items()}
+                  for name, tree in (("params", params), ("opt_state", opt_state))}
+        if _rank() != 0:
+            _barrier()
+            return final
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        for name, tree in (("params", params), ("opt_state", opt_state)):
-            np.savez(os.path.join(tmp, f"{name}.npz"),
-                     **{k: _to_numpy(t) for k, t in _flatten(tree).items()})
+        for name, flat in arrays.items():
+            np.savez(os.path.join(tmp, f"{name}.npz"), **flat)
         manifest = {"step": step, "fingerprint": self.fingerprint,
                     "extra": extra or {}, "format": 1}
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
@@ -104,6 +131,7 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)  # atomic publish
         self._rotate()
+        _barrier()
         return final
 
     def _rotate(self) -> None:

@@ -318,6 +318,28 @@ class EngineConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """A data x model device mesh, with a leading ``pod`` axis when
+    ``pods > 1``: the JAX package's ``MeshConfig``."""
+
+    data: int = 16
+    model: int = 16
+    pods: int = 1  # >1 adds the leading "pod" axis
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.pods
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.pods > 1 else ("data", "model")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.pods, self.data, self.model) if self.pods > 1 else (self.data, self.model)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-4
     warmup_steps: int = 100

@@ -1,14 +1,33 @@
-"""The devices the shards of a tensor-parallel engine sit on: the port's
-counterpart of the JAX package's ``launch/mesh.py``, whose engine builds a
-``(1, tp)`` mesh over the first ``tp`` devices."""
+"""Meshes and shard devices, the port's counterpart of the JAX package's
+``launch/mesh.py``.
+
+* :func:`start_world` — the process group of the launcher's world
+  (``torch.distributed.run`` sets ``RANK``, ``WORLD_SIZE`` and
+  ``LOCAL_RANK``): ``nccl`` with one card per local rank, or ``gloo`` on the
+  CPU, every collective under ``COLLECTIVE_TIMEOUT_S``.
+* :func:`make_local_mesh` / :func:`make_mesh` — a ``DeviceMesh`` over that
+  world, for multi-device training.  Functions, not
+  module constants: importing this module touches no device or group.
+* :func:`shard_devices` — the devices the shards of a tensor-parallel
+  engine sit on (the reference's engine builds a ``(1, tp)`` mesh over the
+  first ``tp`` devices).
+"""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import os
+from datetime import timedelta
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch.config import MeshConfig
 
 Device = Union[str, torch.device]
+
+COLLECTIVE_TIMEOUT_S = 300.0  # a collective of the launcher's world fails after it
 
 
 def shard_devices(tp: int, device: torch.device,
@@ -36,3 +55,69 @@ def shard_devices(tp: int, device: torch.device,
         raise ValueError(f"tp={tp} exceeds the {n} available device(s); pass "
                          "shard_devices (one device may repeat) or lower --tp")
     return [torch.device("cuda", i) for i in range(tp)]
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _mesh_device_type() -> str:
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def make_mesh(cfg: MeshConfig) -> DeviceMesh:
+    """A mesh of ``cfg``'s shape and dim names over the started world,
+    whose size must be ``cfg.num_devices``."""
+    n = _world()
+    if n != cfg.num_devices:
+        raise ValueError(f"mesh {cfg.shape} needs {cfg.num_devices} ranks, the world has {n}")
+    return init_device_mesh(_mesh_device_type(), cfg.shape, mesh_dim_names=cfg.axis_names)
+
+
+def make_local_mesh(model: Optional[int] = None) -> DeviceMesh:
+    """A ``(world // model, model)`` data x model mesh over the started
+    world (tests and smoke runs).
+
+    Raises ``ValueError`` (not an assert: those vanish under ``python -O``)
+    when the model axis exceeds, or does not divide, the world."""
+    n = _world()
+    model = model or 1
+    if model > n:
+        raise ValueError(
+            f"model axis {model} exceeds the {n} available device(s); start more "
+            f"ranks (python -m torch.distributed.run --nproc-per-node N) or lower --tp")
+    if n % model != 0:
+        raise ValueError(f"model axis {model} does not divide the {n} available device(s)")
+    return make_mesh(MeshConfig(data=n // model, model=model))
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launched_world() -> int:
+    """The world size ``torch.distributed.run`` set (1 without a launcher)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def start_world(device: torch.device) -> Tuple[torch.device, bool]:
+    """Start the launcher's process group unless one is running: ``nccl`` on
+    card ``LOCAL_RANK`` for a CUDA ``device`` (made current), ``gloo`` for
+    the CPU.  Returns (this rank's device, whether this call started the
+    group: then the caller destroys it)."""
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if dist.is_initialized():
+        return device, False
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S),
+                            device_id=device if device.type == "cuda" else None)
+    return device, True

@@ -11,6 +11,10 @@ JAX package leaves these to XLA.
   cache; the dense oracle's decode path and zamba2's shared-attention decode.
 * :func:`write_kv` — write each row's new K/V at its own position (zamba2's
   ring buffer writes at ``lens % capacity``).
+* :func:`decode_attention_blocksharded` — split-K decode on a mesh whose
+  ``model`` axis shards the KV sequence (``kv_shard_mode="blocks"``): each
+  rank attends over its own KV blocks, and the partials merge by
+  log-sum-exp across the model axis.
 * :func:`prefix_attention` / :func:`suffix_attention_merge` — a prefix-cache
   hit's suffix prefill over a cached prefix gathered from the device pool,
   or over flash partials the host computed on its own prefix pages (plain
@@ -26,10 +30,18 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Shard
 
+from repro_torch.distributed.sharding import current_context, mesh_sizes, shard, spec_placements
 from repro_torch.kernels.flash_prefill import flash_prefill
 
 NEG_INF = -1e30
+
+
+def _heads_sharded() -> bool:
+    ctx = current_context()
+    return ctx is not None and ctx.rules.get("heads") is not None
 
 
 def _repeat_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
@@ -54,8 +66,14 @@ def chunked_attention(
     ``q_offset`` is the absolute position of q[:, 0] relative to k[:, 0].
     The last chunk may be ragged (the reference needs ``Sq % q_chunk == 0``
     because its lengths are padded to power-of-two buckets; the port's are
-    not).
+    not).  On DTensors each rank attends over its own block
+    (:func:`_chunked_attention_blocks`, where the reference's layout
+    constraints on k, v, the scores and the output sit): below that branch
+    every tensor is plain.
     """
+    if isinstance(q, DTensor):
+        return _chunked_attention_blocks(q, k, v, causal=causal, window=window,
+                                         q_chunk=q_chunk, q_offset=q_offset)
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     q_per_kv = H // k.shape[2]
@@ -77,6 +95,32 @@ def chunked_attention(
         p = torch.softmax(s, dim=-1)
         outs.append(torch.einsum("bchs,bshd->bchd", p.to(v.dtype), v))
     return torch.cat(outs, dim=1)
+
+
+def _chunked_attention_blocks(q: DTensor, k: DTensor, v: DTensor, **kw) -> DTensor:
+    """:func:`chunked_attention` on a mesh.  Attention is independent per
+    batch row and per head, so each rank attends over its own block as
+    local tensors: its batch rows, and under a heads rule its block of the
+    query heads against the KV heads they read (the KV heads gathered over
+    the model axis, their gradient a partial sum over it).  DTensor's own
+    einsum here merges the batch and head dims, sharded over two mesh
+    dims, which the sharding propagation of torch 2.11 refuses."""
+    mesh = q.device_mesh
+    heads = _heads_sharded()
+    q = shard(q, "batch", None, "heads" if heads else None, None)
+    hdims = [i for i, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 2]
+    k, v = (shard(t, "batch", None, None, None) for t in (k, v))
+    grad = [Partial() if i in hdims else p for i, p in enumerate(k.placements)]
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=grad) for t in (k, v))
+    H = q.shape[2]
+    kl, vl = (_repeat_kv(t, H // t.shape[2]) for t in (kl, vl))
+    if hdims:  # this rank's block of heads (torch.chunk's blocks)
+        d = hdims[0]
+        h0 = mesh.get_local_rank(d) * -(-H // mesh.size(d))
+        kl, vl = (t[:, :, h0:h0 + ql.shape[2]] for t in (kl, vl))
+    o = chunked_attention(ql, kl, vl, **kw)
+    return DTensor.from_local(o, mesh, q.placements, run_check=False)
 
 
 def prefill_attention(
@@ -136,6 +180,97 @@ def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k_new: torch.Tensor,
     p = pos[rows].long().clamp(0, S - 1)
     cache_k[rows, p] = k_new[rows].to(cache_k.dtype)
     cache_v[rows, p] = v_new[rows].to(cache_v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Split-K decode attention, KV sequence sharded over the "model" axis
+# ---------------------------------------------------------------------------
+
+
+def _partial_flash(q, k_local, v_local, valid, scale):
+    """Unnormalised local attention: (acc [B, H, hd] float32, l [B, H],
+    m [B, H])."""
+    s = torch.einsum("bhd,bshd->bhs", q, k_local).float() * scale
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    # a rank with no valid key keeps m finite so exp() stays defined
+    m_safe = torch.clamp(m, min=NEG_INF / 2)
+    e = torch.where(valid[:, None, :], torch.exp(s - m_safe[..., None]), 0.0)
+    acc = torch.einsum("bhs,bshd->bhd", e.to(v_local.dtype), v_local).float()
+    return acc, e.sum(dim=-1), m_safe
+
+
+def decode_attention_blocksharded(
+    q: torch.Tensor,  # [B, H, hd]
+    k_cache: torch.Tensor,  # [B, S, KV, hd]; S sharded over "model"
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [B, KV, hd], the token to insert at position lens
+    v_new: torch.Tensor,
+    lens: torch.Tensor,  # [B] int, tokens valid BEFORE the insert
+    *,
+    window: int = 0,
+):
+    """Insert (k_new, v_new) at position ``lens`` and attend over ``lens +
+    1`` keys, the KV sequence sharded over the ``model`` mesh axis: each
+    rank writes the rows whose position falls in its block, computes flash
+    partials over its block, and the partials merge by log-sum-exp (an
+    all-reduce MAX, then SUMs, over the model axis): split-K flash decoding
+    across cards.  Inputs are DTensors or full tensors (the same on every
+    rank); the caches are laid out (batch, "model") and written in place.
+    Returns (out [B, H, hd] replicated over model, k_cache, v_cache).  With
+    no context on a mesh with a ``model`` axis: the contiguous decode."""
+    ctx = current_context()
+    if ctx is None or not ctx.distributed or "model" not in ctx.mesh.mesh_dim_names:
+        write_kv(k_cache, v_cache, k_new, v_new, lens)
+        return decode_attention(q, k_cache, v_cache, lens + 1, window=window), k_cache, v_cache
+
+    mesh = ctx.mesh
+    names = mesh.mesh_dim_names
+    batch = tuple(a for a in ("pod", "data") if a in names)
+    bspec = (batch[0] if len(batch) == 1 else batch) if batch else None
+
+    def lay(x, *rest):
+        pl = spec_placements((bspec,) + rest, mesh)
+        if isinstance(x, DTensor):
+            x = x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+        else:
+            x = ctx.distribute_placements(x, pl)
+        return x
+
+    qd, knd, vnd = (lay(t, None, None) for t in (q, k_new, v_new))
+    lensd = lay(lens)
+    kcd, vcd = (lay(t, "model", None, None) for t in (k_cache, v_cache))
+    ql, kn, vn, ln, kc, vc = (t.to_local() for t in (qd, knd, vnd, lensd, kcd, vcd))
+    B, S, KV, hd = k_cache.shape
+    local_S = S // mesh_sizes(mesh)["model"]
+    offset = mesh.get_local_rank("model") * local_S
+    # write the new token into the owning rank's block
+    local_pos = ln.long() - offset
+    owned = (local_pos >= 0) & (local_pos < local_S)
+    rows = torch.arange(kc.shape[0], device=kc.device)[owned]
+    pos = local_pos[owned]
+    kc[rows, pos] = kn[owned].to(kc.dtype)
+    vc[rows, pos] = vn[owned].to(vc.dtype)
+    # partial attention over the local block
+    new_lens = ln.long() + 1
+    kv_pos = offset + torch.arange(local_S, device=kc.device)
+    valid = kv_pos[None, :] < new_lens[:, None]
+    if window:
+        valid &= kv_pos[None, :] >= (new_lens[:, None] - window)
+    qpk = ql.shape[1] // KV
+    acc, l, m = _partial_flash(ql, _repeat_kv(kc, qpk), _repeat_kv(vc, qpk), valid,
+                               1.0 / math.sqrt(hd))
+    # combine across the model axis, log-sum-exp weighted
+    group = mesh.get_group("model")
+    m_glob = m.clone()
+    dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - m_glob)
+    num = acc * corr[..., None]
+    den = l * corr
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(den, group=group)
+    out = (num / torch.clamp(den, min=1e-30)[..., None]).to(ql.dtype)
+    return (DTensor.from_local(out, mesh, qd.placements, run_check=False), kcd, vcd)
 
 
 # ---------------------------------------------------------------------------

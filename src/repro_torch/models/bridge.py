@@ -37,7 +37,7 @@ stacked leaf as it stacks the leaf).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -219,25 +219,35 @@ def params_to_reference(state: Mapping[str, torch.Tensor], cfg: ArchConfig) -> T
     return tree
 
 
+def reference_leaves(names, cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], Tuple[int, ...],
+                                                          List[str]]]:
+    """For each leaf of the reference's parameter tree: (its key path, its
+    stacked leading shape — ``()`` for an unstacked leaf, ``(L,)`` for one
+    stacked over L layers, ``(G, per_group)`` for zamba2's Mamba groups —
+    and the port's parameter ``names`` it holds, in stacking order)."""
+    names = list(names)
+    ids = {n: torch.tensor(i) for i, n in enumerate(names)}
+    leaves = []
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+            else:
+                v = np.asarray(v)
+                leaves.append((path + (k,), v.shape, [names[int(i)] for i in np.ravel(v)]))
+
+    walk(params_to_reference(ids, cfg), ())
+    return leaves
+
+
 def reference_stacks(names, cfg: ArchConfig) -> List[List[str]]:
     """The port's parameter ``names`` grouped by the reference leaf that
     holds them (a per-layer parameter sits in one leaf stacked over the
     layers of its kind; an unstacked one is a group of its own), each group
     in stacking order.  Adafactor takes its update clip over a reference
     leaf, so over such a group."""
-    names = list(names)
-    ids = {n: torch.tensor(i) for i, n in enumerate(names)}
-    groups: List[List[str]] = []
-
-    def walk(tree):
-        for v in tree.values():
-            if isinstance(v, Mapping):
-                walk(v)
-            else:
-                groups.append([names[int(i)] for i in np.ravel(v)])
-
-    walk(params_to_reference(ids, cfg))
-    return groups
+    return [group for _, _, group in reference_leaves(names, cfg)]
 
 
 def _is_factored(leaf) -> bool:

@@ -28,11 +28,13 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
     embed_lookup,
+    flat_axes,
     init_mlp,
     logits_last,
     maybe_remat,
@@ -41,10 +43,12 @@ from repro_torch.models.layers import (
     rms_norm,
     softmax_xent,
     swiglu_apply,
+    swiglu_logical_axes,
     zeros_cache,
 )
 from repro_torch.models.transformer import (
     attn_full,
+    attn_logical_axes,
     attn_params,
     init_attn,
     out_proj,
@@ -129,6 +133,21 @@ class EncDecLM(nn.Module):
             blk.init(cfg, g)
         return self
 
+    def param_logical_axes(self) -> Dict[str, Tuple]:
+        """{parameter name: logical axes}, the reference's axes (its stacked
+        leaves' leading layer axis dropped)."""
+        cfg = self.cfg
+        enc = {"ln1": (None,), "attn": attn_logical_axes(cfg), "ln2": (None,),
+               "mlp": swiglu_logical_axes()}
+        dec = {**enc, "ln_c": (None,), "cross": attn_logical_axes(cfg)}
+        ax = {"embed": ("vocab", None), "frame_in": (None, None), "enc_norm": (None,),
+              "final_norm": (None,), "unembed": (None, "vocab")}
+        for i in range(len(self.enc_blocks)):
+            ax.update(flat_axes(f"enc_blocks.{i}.", enc))
+        for i in range(len(self.dec_blocks)):
+            ax.update(flat_axes(f"dec_blocks.{i}.", dec))
+        return ax
+
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
@@ -138,13 +157,15 @@ class EncDecLM(nn.Module):
         o, _, _ = attn_full(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.rms_eps),
                             causal=False, impl=impl)
         x = x + o
-        return x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps))
+        return shard(x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps)),
+                     "batch", "seq", None)
 
     def encode(self, frames: torch.Tensor, impl: str = "kernel",
                remat: str = "none") -> torch.Tensor:
         """frames [B, F, d] (the stubbed frontend's) -> memory [B, F, d];
         each layer checkpointed under ``remat`` (a ``remat_policy``)."""
         x = torch.as_tensor(frames).to(self.device, self.act_dtype) @ self.frame_in
+        x = shard(x, "batch", None, None)
         for blk in self.enc_blocks:
             x = maybe_remat(lambda x, blk=blk: self._enc_layer(blk, x, impl), remat)(x)
         return rms_norm(x, self.enc_norm, self.cfg.rms_eps)
@@ -160,7 +181,8 @@ class EncDecLM(nn.Module):
         ck, cv = _heads(memory, blk.cross["wk"]), _heads(memory, blk.cross["wv"])
         q = _heads(rms_norm(x, blk.ln_c, cfg.rms_eps), blk.cross["wq"])
         x = x + out_proj(blk.cross, attn_lib.chunked_attention(q, ck, cv, causal=False))
-        return x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps))
+        return shard(x + swiglu_apply(blk.mlp, rms_norm(x, blk.ln2, cfg.rms_eps)),
+                     "batch", "seq", None)
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """The reference's training loss: the encoder over ``frames``
@@ -169,7 +191,8 @@ class EncDecLM(nn.Module):
         every attention plain.  Returns (xent, {"xent", "aux": 0})."""
         cfg, dev = self.cfg, self.device
         memory = self.encode(batch["frames"], impl="plain", remat=cfg.remat_policy)
-        x = embed_lookup(self.embed, batch["tokens"].to(dev)).to(self.act_dtype)
+        x = shard(embed_lookup(self.embed, batch["tokens"].to(dev)).to(self.act_dtype),
+                  "batch", None, None)
         for blk in self.dec_blocks:
             x = maybe_remat(lambda x, mem, blk=blk: self._dec_layer(blk, x, mem),
                             cfg.remat_policy)(x, memory)
@@ -210,7 +233,8 @@ class EncDecLM(nn.Module):
         B, S = tokens.shape
         capacity = capacity or S
         memory = self.encode(frames, impl)
-        x = embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype)
+        x = shard(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),
+                  "batch", None, None)
         ks, vs, cks, cvs = [], [], [], []
         for blk in self.dec_blocks:
             o, k, v = attn_full(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.rms_eps),
@@ -248,7 +272,8 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         lens = cache["lens"]
         rows = None if active is None else active.nonzero()[:, 0]
-        x = embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype)
+        x = shard(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),
+                  "batch", None)
         for i, blk in enumerate(self.dec_blocks):
             q, k, v = project_qkv(blk.attn, cfg, rms_norm(x, blk.ln1, cfg.rms_eps)[:, None, :],
                                   lens[:, None])

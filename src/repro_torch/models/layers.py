@@ -3,6 +3,10 @@ embedding lookup, logits, the training loss's chunked cross entropy and
 activation checkpointing, the initialisers, and the parameter and cache
 helpers the models share.
 
+The ``shard()`` annotations sit where the reference has them; they act only
+on DTensors under an active sharding context
+(:mod:`repro_torch.distributed.sharding`) and are the identity otherwise.
+
 Plain functions on tensors.  Weight layouts follow the JAX package
 (``w_gate [d, f]``, ``w_down [f, d]``, ``embed [V, d]``) so the bridge and
 the differential tests compare like with like.  Norm, RoPE and SiLU math is
@@ -11,15 +15,19 @@ taken in float32 and cast back, as the reference does.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import torch_dtype
+from repro_torch.distributed.sharding import from_local, local, shard
 
 Params = Mapping[str, torch.Tensor]
 
@@ -138,6 +146,23 @@ def mlp_params(d: int, f: int, dtype: torch.dtype, device) -> nn.ParameterDict:
                              "w_down": param((f, d), dtype, device)})
 
 
+def swiglu_logical_axes() -> dict:
+    return {"w_gate": ("d_model", "d_ff"), "w_up": ("d_model", "d_ff"),
+            "w_down": ("d_ff", "d_model")}
+
+
+def flat_axes(prefix: str, tree: Mapping) -> dict:
+    """A nested {name: logical axes} tree -> {``prefix`` + dotted name:
+    axes}, the port's parameter names."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flat_axes(f"{prefix}{k}.", v))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def init_mlp(mlp: nn.ParameterDict, g: torch.Generator) -> None:
     for n in ("w_gate", "w_up", "w_down"):
         w = mlp[n]
@@ -176,8 +201,11 @@ def swiglu_hidden(p: Params, x: torch.Tensor, min_rows: int = 0) -> torch.Tensor
 
 
 def swiglu_apply(p: Params, x: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
-    """x: [..., d_model] -> [..., d_model]."""
-    return swiglu_hidden(p, x, min_rows) @ p["w_down"]
+    """x: [..., d_model] -> [..., d_model]; d_ff sharded over the model
+    axis on a mesh."""
+    h = swiglu_hidden(p, x, min_rows)
+    h = shard(h, *((None,) * (h.ndim - 1)), "d_ff")
+    return h @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -186,15 +214,52 @@ def swiglu_apply(p: Params, x: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """table: [vocab, d_model]; tokens: int [...] -> [..., d_model].  A
-    gather; its backward (``embedding_dense_backward``) is deterministic,
-    where indexing's accumulating scatter is not on the CPU."""
-    return F.embedding(tokens.long(), table)
+    """table: [vocab, d_model] (vocab-sharded on a mesh); tokens: int [...]
+    -> [..., d_model].  A gather; its backward (``embedding_dense_backward``)
+    is deterministic, where indexing's accumulating scatter is not on the
+    CPU."""
+    if isinstance(table, DTensor):
+        out = _embed_vocab_sharded(table, tokens)
+    else:
+        out = F.embedding(tokens.long(), table)
+    return shard(out, "batch", *((None,) * (out.ndim - 2)))
+
+
+def _embed_vocab_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The gather over a table whose vocab (dim 0) is sharded over one mesh
+    dim: each rank gathers the rows of its own vocab block (zeros for the
+    tokens outside it), and the result is a partial sum over that mesh dim,
+    exact since all but one term are zeros.  DTensor's own strategy for it
+    leaves a masked partial whose backward it cannot always redistribute
+    (a partial-sum gradient); this one has none.  A table laid out
+    otherwise gathers replicated."""
+    mesh = table.device_mesh
+    vdims = [i for i, p in enumerate(table.placements) if isinstance(p, Shard) and p.dim == 0]
+    if len(vdims) != 1 or any(not isinstance(p, Replicate) for i, p in
+                              enumerate(table.placements) if i != vdims[0]):
+        table = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+        return F.embedding(tokens.long(), table)
+    vd = vdims[0]
+    tok_pl = (tokens.placements if isinstance(tokens, DTensor)
+              else (Replicate(),) * mesh.ndim)
+    tok = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    # a rank's table gradient sums its own tokens' rows: partial over the
+    # mesh dims that shard the tokens
+    grad = [Shard(0) if i == vd else (Partial() if isinstance(tok_pl[i], Shard) else Replicate())
+            for i in range(mesh.ndim)]
+    tl = table.to_local(grad_placements=grad)
+    chunk = -(-table.shape[0] // mesh.size(vd))  # torch.chunk's block size
+    ids = tok.long() - mesh.get_local_rank(vd) * chunk
+    inside = (ids >= 0) & (ids < tl.shape[0])
+    out = F.embedding(ids.clamp(0, max(tl.shape[0] - 1, 0)), tl) * inside[..., None].to(tl.dtype)
+    pl = [Partial() if i == vd else tok_pl[i] for i in range(mesh.ndim)]
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 def logits_last(hidden_last: torch.Tensor, unembed: torch.Tensor) -> torch.Tensor:
-    """hidden_last: [B, d] -> float32 logits [B, vocab]."""
-    return (hidden_last @ unembed).float()
+    """hidden_last: [B, d] -> float32 logits [B, vocab] (vocab-sharded on
+    a mesh)."""
+    return shard((hidden_last @ unembed).float(), "batch", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -210,35 +275,97 @@ def _save_weight_products(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@torch.library.custom_op("repro_torch::sp_gathered", mutates_args=())
+def _sp_gathered(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` under an op of its own, which ``"sp_save"``'s rule
+    saves (the reference's ``checkpoint_name(x, "sp_gathered")``)."""
+    return x.clone()
+
+
+@_sp_gathered.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_sp_gathered.register_autograd(lambda ctx, g: g)
+
+_tagging = threading.local()
+
+
+@contextlib.contextmanager
+def _sp_tagging():
+    prev = getattr(_tagging, "on", False)
+    _tagging.on = True
+    try:
+        yield
+    finally:
+        _tagging.on = prev
+
+
+def tag_sp_gathered(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Tag the post-all-gather q/k/v as saveable under ``"sp_save"``: the
+    identity (no copy) outside an ``"sp_save"`` body."""
+    if not getattr(_tagging, "on", False):
+        return xs
+
+    def tag(x):
+        if isinstance(x, DTensor):
+            return DTensor.from_local(_sp_gathered(x.to_local()), x.device_mesh, x.placements,
+                                      run_check=False)
+        return _sp_gathered(x)
+
+    return tuple(tag(x) for x in xs)
+
+
+def _save_sp_gathered(ctx, op, *args, **kwargs):
+    """``"sp_save"``'s rule: keep the tagged tensors, recompute the rest."""
+    if op is torch.ops.repro_torch.sp_gathered.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def maybe_remat(fn: Callable, policy: str) -> Callable:
     """``fn`` under the arch's activation-checkpointing policy, the
     reference's ``maybe_remat``: ``"none"`` stores every activation,
-    ``"full"`` recomputes the whole body in the backward pass, and
+    ``"full"`` recomputes the whole body in the backward pass,
     ``"minimal"`` saves the unbatched weight products only (the
-    counterpart of ``dots_with_no_batch_dims_saveable``).  ``"sp_save"``
-    keeps the sequence-parallel all-gathers, which exist only on a mesh."""
+    counterpart of ``dots_with_no_batch_dims_saveable``), and ``"sp_save"``
+    is ``"full"`` that saves the tensors tagged by :func:`tag_sp_gathered`
+    (the q/k/v projections, which on a sequence-parallel mesh follow the
+    sequence all-gathers), with or without a mesh."""
     if policy == "none":
         return fn
     if policy == "full":
         return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
-    if policy == "minimal":
-        def contexts():
-            return ckpt.create_selective_checkpoint_contexts(_save_weight_products)
+    if policy in ("minimal", "sp_save"):
+        rule = _save_weight_products if policy == "minimal" else _save_sp_gathered
 
-        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+        def contexts():
+            return ckpt.create_selective_checkpoint_contexts(rule)
+
+        def body(*a):
+            if policy == "minimal":
+                return fn(*a)
+            with _sp_tagging():
+                return fn(*a)
+
+        return lambda *a: ckpt.checkpoint(body, *a, use_reentrant=False,
                                           context_fn=contexts)
-    if policy == "sp_save":
-        raise NotImplementedError(
-            "remat_policy 'sp_save' saves sequence-parallel all-gathers, which run "
-            "only under a mesh: multi-device training is ROADMAP P16b")
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 
 def _chunk_xent(h: torch.Tensor, unembed: torch.Tensor, t: torch.Tensor,
                 m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    logits = (h @ unembed).float()  # [B, c, V]
+    logits = shard((h @ unembed).float(), "batch", None, "vocab")  # [B, c, V]
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, t.long()[..., None])[..., 0]
+    # the gold logits gathered from this rank's batch block with the vocab
+    # whole: DTensor's gather may shard the vocab and leave a masked partial
+    # that its later ops cannot reduce
+    if isinstance(logits, DTensor):
+        ll, tl = local(logits, "batch", None, None), local(t, "batch", None)
+        gold = from_local(ll.gather(-1, tl.long()[..., None])[..., 0], "batch", None)
+    else:
+        gold = logits.gather(-1, t.long()[..., None])[..., 0]
     return ((lse - gold) * m).sum(), m.sum()
 
 

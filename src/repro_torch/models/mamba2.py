@@ -21,6 +21,7 @@ from torch import nn
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.layers import dense_init, param, rms_norm
 
 State = Dict[str, torch.Tensor]
@@ -80,6 +81,17 @@ class Mamba2Block(nn.Module):
             p = getattr(self, name)
             p.data.copy_(dense_init(g, p.shape, fi, p.dtype, p.device))
 
+    LOGICAL_AXES = {
+        "ln": (None,),
+        "wz": (None, "heads", None), "wx": (None, "heads", None),
+        "wB": (None, None), "wC": (None, None),
+        "wdt": (None, "heads"), "dt_bias": ("heads",),
+        "A_log": ("heads",), "D": ("heads",),
+        "conv_w": (None, None), "conv_b": (None,),
+        "norm": ("heads", None),
+        "wo": ("heads", None, None),
+    }
+
     def state_shape(self, batch: int):
         return {
             "ssm": ((batch, self.H, self.N, self.P), "float32", ("batch", "heads", None, None)),
@@ -132,6 +144,7 @@ class Mamba2Block(nn.Module):
         B, T, _ = x.shape
         h = rms_norm(x, self.ln, self.cfg.rms_eps)
         z, xin, Bm, Cm, dt = self._project(h)
+        xin = shard(xin, "batch", None, "heads", None)
         xbc = torch.cat([xin.reshape(B, T, self.d_inner), Bm, Cm], dim=-1)
         conv_out, new_tail = self._causal_conv_seq(xbc, state["conv"])
         di, N = self.d_inner, self.N

@@ -17,6 +17,13 @@ assigns only the kept slots (``index_put_`` without ``accumulate``): the
 same buffer, and no atomics on the card.  The router runs in float32 (its
 weight is float32 even in a bf16 model) and the gates are cast to the
 activation dtype, as in the reference.
+
+On a mesh (:mod:`repro_torch.distributed.sharding`) the experts run as
+DTensor products sharded over the experts; the routing and the dispatch
+and combine (data-dependent indexing, which DTensor cannot shard) run on
+each rank's batch block as local tensors, since the capacity group is the
+batch row, and the load-balance loss takes its means over the global
+batch.
 """
 
 from __future__ import annotations
@@ -27,9 +34,18 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import MoEConfig
-from repro_torch.models.layers import dense_init, init_mlp, mlp_params, param, swiglu_apply
+from repro_torch.distributed.sharding import batch_sum, current_context, from_local, local, shard
+from repro_torch.models.layers import (
+    dense_init,
+    init_mlp,
+    mlp_params,
+    param,
+    swiglu_apply,
+    swiglu_logical_axes,
+)
 
 
 class MoE(nn.Module):
@@ -61,20 +77,36 @@ class MoE(nn.Module):
             init_mlp(self.shared, g)
 
 
+def moe_logical_axes(moe: MoEConfig) -> dict:
+    ax = {"router": (None, None),
+          "w_gate": ("experts", None, "expert_ff"),
+          "w_up": ("experts", None, "expert_ff"),
+          "w_down": ("experts", "expert_ff", None)}
+    if moe.num_shared_experts:
+        ax["shared"] = swiglu_logical_axes()
+    return ax
+
+
 def _capacity(T: int, moe: MoEConfig) -> int:
     return max(int(math.ceil(T * moe.top_k * moe.capacity_factor / moe.num_experts)), 1)
 
 
-def _route(p, x: torch.Tensor, moe: MoEConfig):
+def _route(p, x: torch.Tensor, moe: MoEConfig, n_tokens: int = 0):
     """x: [B, T, d] -> (gate weights [B, T, k] in x's dtype, expert ids
-    [B, T, k] in descending logit order, GShard aux loss)."""
-    logits = x.float() @ p.router.float()
+    [B, T, k] in descending logit order, GShard aux loss).  With
+    ``n_tokens`` (the global batch's tokens), x is one rank's batch block
+    and the aux loss's means are taken over the global batch."""
+    logits = x.float() @ local(p.router, None, None).float()
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(logits, moe.top_k, dim=-1, sorted=True)
     weights = torch.softmax(gates, dim=-1).to(x.dtype)
     E = moe.num_experts
-    frac = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
+    top1 = F.one_hot(idx[..., 0], E).float()
+    if n_tokens:
+        frac = batch_sum(top1.sum(dim=(0, 1))) / n_tokens
+        aux = E * torch.sum(frac * (batch_sum(probs.sum(dim=(0, 1))) / n_tokens))
+    else:
+        aux = E * torch.sum(top1.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
     return weights, idx, aux
 
 
@@ -93,12 +125,18 @@ def _expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
     """buf: [B, E, C, d] -> [B, E, C, d] through each expert's SwiGLU, as
     batched matmuls over [E, B*C, d]."""
     B, E, C, d = buf.shape
+    ctx = current_context()
+    # with expert_ff sharded the batch is released inside the experts (the
+    # reference's 2-D expert sharding)
+    bspec = None if ctx is not None and ctx.rules.get("expert_ff") is not None else "batch"
+    buf = shard(buf, bspec, "experts", None, None)
     xe = buf.permute(1, 0, 2, 3).reshape(E, B * C, d)
     gate = torch.bmm(xe, p.w_gate)
     up = torch.bmm(xe, p.w_up)
     h = F.silu(gate.float()).to(buf.dtype) * up
+    h = shard(h, "experts", bspec, "expert_ff")
     out = torch.bmm(h, p.w_down)
-    return out.reshape(E, B, C, d).permute(1, 0, 2, 3)
+    return shard(out.reshape(E, B, C, d).permute(1, 0, 2, 3), "batch", "experts", None, None)
 
 
 def _combine(y_slots: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -118,15 +156,18 @@ def moe_apply_scatter(p, x: torch.Tensor, moe: MoEConfig) -> Tuple[torch.Tensor,
     B, T, d = x.shape
     k = moe.top_k
     C = _capacity(T, moe)
-    weights, idx, aux = _route(p, x, moe)
+    sharded = isinstance(x, DTensor)
+    xl = local(x, "batch", None, None)  # this rank's batch block
+    weights, idx, aux = _route(p, xl, moe, B * T if sharded else 0)
     eid, pos, keep = _slot_positions(idx, moe, C)
-    rows = torch.arange(B, device=x.device)[:, None].expand_as(eid)
+    rows = torch.arange(xl.shape[0], device=x.device)[:, None].expand_as(eid)
     tok = (torch.arange(T * k, device=x.device) // k)[None, :].expand_as(eid)
-    buf = x.new_zeros((B, moe.num_experts, C, d))
-    buf[rows[keep], eid[keep], pos[keep]] = x[rows[keep], tok[keep]]
-    out = _expert_ffn(p, buf)
+    buf = xl.new_zeros((xl.shape[0], moe.num_experts, C, d))
+    buf[rows[keep], eid[keep], pos[keep]] = xl[rows[keep], tok[keep]]
+    out = local(_expert_ffn(p, from_local(buf, "batch", None, None, None)),
+                "batch", None, None, None)
     y_slots = out[rows, eid, torch.where(keep, pos, 0)] * keep[..., None].to(x.dtype)
-    return _combine(y_slots, weights), aux
+    return from_local(_combine(y_slots, weights), "batch", None, None), aux
 
 
 def moe_apply_dense(p, x: torch.Tensor, moe: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:

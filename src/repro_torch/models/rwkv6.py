@@ -28,6 +28,7 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.rwkv6_scan import ops as scan_ops
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked
 from repro_torch.models.layers import (
@@ -35,6 +36,7 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     embed_lookup,
+    flat_axes,
     group_norm_heads,
     logits_last,
     maybe_remat,
@@ -63,6 +65,20 @@ def scan(impl: str):
 
 class RWKV6Block(nn.Module):
     """One layer: time-mix (the recurrence) then channel-mix."""
+
+    LOGICAL_AXES = {
+        "ln1": (None,), "ln2": (None,),
+        "mu_x": (None,), "mu_5": (None, None),
+        "maa_w1": (None, None), "maa_w2": (None, None, None),
+        "w0": (None,), "decay_w1": (None, None), "decay_w2": (None, None),
+        "u": ("heads", None),
+        "wr": (None, "heads", None), "wk": (None, "heads", None),
+        "wv": (None, "heads", None), "wg": (None, "heads", None),
+        "wo": ("heads", None, None),
+        "ln_x_scale": ("heads", None), "ln_x_bias": ("heads", None),
+        "mu_ck": (None,), "mu_cr": (None,),
+        "wck": (None, "d_ff"), "wcv": ("d_ff", None), "wcr": (None, None),
+    }
 
     def __init__(self, cfg: ArchConfig, H: int, N: int, maa_rank: int, decay_rank: int,
                  dtype: torch.dtype, device):
@@ -147,6 +163,15 @@ class RWKV6LM(nn.Module):
             blk.init(self.cfg, generator)
         return self
 
+    def param_logical_axes(self) -> Dict[str, Tuple]:
+        """{parameter name: logical axes}, the reference's axes (its stacked
+        leaves' leading layer axis dropped)."""
+        ax = {"embed": ("vocab", None), "ln0": (None,), "final_norm": (None,),
+              "unembed": (None, "vocab")}
+        for i in range(len(self.blocks)):
+            ax.update(flat_axes(f"blocks.{i}.", RWKV6Block.LOGICAL_AXES))
+        return ax
+
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
@@ -195,6 +220,7 @@ class RWKV6LM(nn.Module):
         r, k, v = self._heads(xr, p.wr), self._heads(xk, p.wk), self._heads(xv, p.wv)
         g = F.silu(self._heads(xg, p.wg).float()).to(x.dtype)
         w = self._decay(p, xw).reshape(*x.shape[:2], self.H, self.N)
+        r, k, v = (shard(t, "batch", None, "heads", None) for t in (r, k, v))
         y, sT = scan(impl)(r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
                            p.u, state0.contiguous())
         y = group_norm_heads(y, p.ln_x_scale, p.ln_x_bias)
@@ -216,6 +242,7 @@ class RWKV6LM(nn.Module):
         xk = x + sx * p.mu_ck.to(x.dtype)
         xr = x + sx * p.mu_cr.to(x.dtype)
         k = torch.square(torch.relu((xk @ p.wck).float())).to(x.dtype)
+        k = shard(k, "batch", *((None,) * (k.ndim - 2)), "d_ff")
         kv = k @ p.wcv
         rgate = torch.sigmoid((xr @ p.wcr).float())
         return (rgate * kv.float()).to(x.dtype)
@@ -233,7 +260,7 @@ class RWKV6LM(nn.Module):
                                             tm_prev, impl)
         x = x + o
         m, cm_last = self._channel_mix_seq(blk, rms_norm(x, blk.ln2, cfg.rms_eps), cm_prev)
-        return x + m, sT, tm_last, cm_last
+        return shard(x + m, "batch", None, None), sT, tm_last, cm_last
 
     def _forward_seq(self, tokens: torch.Tensor, state: Optional[Cache] = None,
                      impl: str = "kernel", remat: str = "none") -> Tuple[torch.Tensor, Cache]:
@@ -243,6 +270,7 @@ class RWKV6LM(nn.Module):
         B, T = tokens.shape
         x = rms_norm(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),
                      self.ln0, cfg.rms_eps)
+        x = shard(x, "batch", None, None)
         if state is None:
             state = self.init_cache(B, 0)
         states, tms, cms = [], [], []
@@ -293,6 +321,7 @@ class RWKV6LM(nn.Module):
         cfg = self.cfg
         x = rms_norm(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),
                      self.ln0, cfg.rms_eps)
+        x = shard(x, "batch", None)
         for i, blk in enumerate(self.blocks):
             h = rms_norm(x, blk.ln1, cfg.rms_eps)
             o, sT, tm_last = self._time_mix_step(blk, h, cache["state"][i],

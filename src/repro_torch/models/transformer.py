@@ -37,10 +37,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.distributed.sharding import tp_allgather
+from repro_torch.distributed.sharding import current_context, model_axis_size, shard, tp_allgather
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
     AUX_LOSS_WEIGHT,
@@ -49,6 +50,7 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     embed_lookup,
+    flat_axes,
     init_mlp,
     logits_last,
     maybe_remat,
@@ -59,9 +61,11 @@ from repro_torch.models.layers import (
     softmax_xent,
     swiglu_apply,
     swiglu_hidden,
+    swiglu_logical_axes,
+    tag_sp_gathered,
     zeros_cache,
 )
-from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.moe import MoE, moe_apply, moe_logical_axes
 
 Cache = Dict[str, torch.Tensor]
 # per layer, one dict of column slices per tensor-parallel shard
@@ -79,6 +83,7 @@ def project_qkv(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
     q = rows_matmul(h, p["wq"].reshape(d, -1), min_rows).view(B, S, H, hd)
     k = rows_matmul(h, p["wk"].reshape(d, -1), min_rows).view(B, S, KV, hd)
     v = rows_matmul(h, p["wv"].reshape(d, -1), min_rows).view(B, S, KV, hd)
+    q, k, v = tag_sp_gathered(q, k, v)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
@@ -102,6 +107,8 @@ def attn_full(p, cfg: ArchConfig, x: torch.Tensor, *, causal: bool = True,
     ``min_rows``: see :func:`project_qkv`."""
     S = x.shape[1]
     q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device), min_rows)
+    if current_context() is not None and cfg.num_heads % model_axis_size() == 0:
+        q = shard(q, "batch", None, "heads", None)
     o = attn_lib.prefill_attention(q, k, v, causal=causal, window=window, impl=impl)
     return out_proj(p, o), k, v
 
@@ -135,6 +142,15 @@ def attn_params(cfg: ArchConfig, dtype: torch.dtype, device) -> nn.ParameterDict
         attn["q_norm"] = param((hd,), torch.float32, device)
         attn["k_norm"] = param((hd,), torch.float32, device)
     return nn.ParameterDict(attn)
+
+
+def attn_logical_axes(cfg: ArchConfig) -> dict:
+    ax = {"wq": (None, "heads", None), "wk": (None, "kv_heads", None),
+          "wv": (None, "kv_heads", None), "wo": ("heads", None, None)}
+    if cfg.qk_norm:
+        ax["q_norm"] = (None,)
+        ax["k_norm"] = (None,)
+    return ax
 
 
 def init_attn(attn: nn.ParameterDict, cfg: ArchConfig, g: torch.Generator) -> None:
@@ -241,9 +257,9 @@ class Block(nn.Module):
             o, k, v = attn_full(self.attn, cfg, h, impl=impl, min_rows=rows)
         else:
             o, k, v = attn_full_tp(self.attn, shards, cfg, h, impl=impl, min_rows=rows)
-        x = x + o
+        x = shard(x + o, "batch", "seq", None)
         m, aux = mlp_apply_aux(self, rms_norm(x, self.ln2, cfg.rms_eps), shards, rows)
-        return x + m, k, v, aux
+        return shard(x + m, "batch", "seq", None), k, v, aux
 
 
 class DenseLM(nn.Module):
@@ -295,6 +311,22 @@ class DenseLM(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def param_logical_axes(self) -> Dict[str, Tuple]:
+        """{parameter name: logical axes}, the reference's axes (its
+        stacked leaves' leading layer axis dropped)."""
+        cfg = self.cfg
+        ax = {"embed": ("vocab", None), "final_norm": (None,)}
+        if not cfg.tie_embeddings:
+            ax["unembed"] = (None, "vocab")
+        for i, blk in enumerate(self.layers):
+            layer = {"ln1": (None,), "ln2": (None,), "attn": attn_logical_axes(cfg)}
+            if blk.kind == "moe":
+                layer["moe"] = moe_logical_axes(cfg.moe)
+            else:
+                layer["mlp"] = swiglu_logical_axes()
+            ax.update(flat_axes(f"layers.{i}.", layer))
+        return ax
+
     def unembed_matrix(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 
@@ -316,7 +348,7 @@ class DenseLM(nn.Module):
         if P and patch_embeds is not None and tokens.shape[1] >= P:
             pe = torch.as_tensor(patch_embeds).to(self.device, self.act_dtype)
             x = torch.cat([pe, x[:, P:]], dim=1)
-        return x
+        return shard(x, "batch", "seq", None)
 
     # -- train ---------------------------------------------------------------
     def loss(self, batch: Dict[str, torch.Tensor]):
@@ -370,7 +402,16 @@ class DenseLM(nn.Module):
                 "v": (kv, cfg.activation_dtype, axes), **lens}
 
     def init_cache(self, batch: int, capacity: int) -> Cache:
-        return zeros_cache(self.cache_shape(batch, capacity), self.device)
+        """Zeros of :meth:`cache_shape`; under a sharding context on a mesh,
+        the K/V leaves are DTensors laid out by their logical axes (``lens``
+        stays whole on every rank)."""
+        shapes = self.cache_shape(batch, capacity)
+        cache = zeros_cache(shapes, self.device)
+        ctx = current_context()
+        if ctx is not None and ctx.distributed:
+            cache = {k: t if k == "lens" else ctx.distribute(t, shapes[k][2])
+                     for k, t in cache.items()}
+        return cache
 
     # -- serve: prefill ------------------------------------------------------
     @torch.inference_mode()
@@ -512,20 +553,31 @@ class DenseLM(nn.Module):
                                     true_lens, shards)
 
     # -- serve: decode over a contiguous cache (the oracle) ------------------
-    @torch.inference_mode()
     def decode(self, tokens: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
         """tokens: [B] -> (logits [B, V], cache).  Writes each row's new K/V
         at position ``lens`` in place (the reference returns a new cache;
         the port updates in place to save a copy of the whole cache) and
         attends over ``lens + 1`` tokens.  Over an int8 cache the new K/V
         are quantised, and each layer attends over its cache dequantised to
-        the activation dtype (the reference's ``attn_decode_int8``)."""
+        the activation dtype (the reference's ``attn_decode_int8``).  On a
+        mesh (a DTensor cache from :meth:`init_cache` under a context) with
+        ``kv_shard_mode="blocks"`` each layer runs the split-K
+        ``decode_attention_blocksharded`` over the model axis; it runs
+        under ``no_grad`` there (DTensor views refuse inference mode)."""
+        mode = torch.no_grad() if isinstance(cache["k"], DTensor) else torch.inference_mode()
+        with mode:
+            return self._decode(tokens, cache)
+
+    def _decode(self, tokens: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
         cfg = self.cfg
         lens = cache["lens"]
         B = tokens.shape[0]
         rows = torch.arange(B, device=self.device)
         pos = lens.long().clamp(0, cache["k"].shape[2] - 1)
         int8 = cfg.kv_cache_dtype == "int8"
+        ctx = current_context()
+        blocks = (cfg.kv_shard_mode == "blocks" and not int8 and ctx is not None
+                  and ctx.distributed and "model" in ctx.mesh.mesh_dim_names)
         x = self.embed_tokens(tokens.to(self.device))
         for i, blk in enumerate(self.layers):
             h = rms_norm(x, blk.ln1, cfg.rms_eps)
@@ -538,11 +590,16 @@ class DenseLM(nn.Module):
                 dt = self.act_dtype
                 kc = cache["k"][i].to(dt) * cache["k_scale"][i][..., None].to(dt)
                 vc = cache["v"][i].to(dt) * cache["v_scale"][i][..., None].to(dt)
+            elif blocks:
+                # split-K over the model axis; writes this layer's K/V blocks
+                o, _, _ = attn_lib.decode_attention_blocksharded(
+                    q[:, 0], cache["k"][i], cache["v"][i], k[:, 0], v[:, 0], lens)
             else:
                 cache["k"][i, rows, pos] = k[:, 0].to(cache["k"].dtype)
                 cache["v"][i, rows, pos] = v[:, 0].to(cache["v"].dtype)
                 kc, vc = cache["k"][i], cache["v"][i]
-            o = attn_lib.decode_attention(q[:, 0], kc, vc, lens + 1)
+            if not blocks:
+                o = attn_lib.decode_attention(q[:, 0], kc, vc, lens + 1)
             x = x + out_proj(blk.attn, o)
             x = x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps))
         return self.final_logits(x), {**cache, "lens": lens + 1}

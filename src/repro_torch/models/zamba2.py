@@ -28,12 +28,14 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
     commit_rows,
     dense_init,
     embed_init,
     embed_lookup,
+    flat_axes,
     init_mlp,
     logits_last,
     maybe_remat,
@@ -42,11 +44,13 @@ from repro_torch.models.layers import (
     rms_norm,
     softmax_xent,
     swiglu_apply,
+    swiglu_logical_axes,
     zeros_cache,
 )
 from repro_torch.models.mamba2 import Mamba2Block
 from repro_torch.models.transformer import (
     attn_full,
+    attn_logical_axes,
     attn_params,
     init_attn,
     out_proj,
@@ -154,6 +158,19 @@ class Zamba2LM(nn.Module):
             blk.init(generator)
         return self
 
+    def param_logical_axes(self) -> Dict[str, Tuple]:
+        """{parameter name: logical axes}, the reference's axes (its stacked
+        Mamba leaves' leading group and layer axes dropped)."""
+        cfg = self.cfg
+        shared = {"ln_in": (None,), "w_in": (None, None), "ln1": (None,),
+                  "attn": attn_logical_axes(cfg), "ln2": (None,),
+                  "mlp": swiglu_logical_axes(), "w_out": (None, None)}
+        ax = {"embed": ("vocab", None), "final_norm": (None,), "unembed": (None, "vocab")}
+        ax.update(flat_axes("shared.", shared))
+        for i in range(len(self.mamba)):
+            ax.update(flat_axes(f"mamba.{i}.", Mamba2Block.LOGICAL_AXES))
+        return ax
+
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
@@ -201,7 +218,8 @@ class Zamba2LM(nn.Module):
         {"xent", "aux": 0})."""
         cfg, dev = self.cfg, self.device
         B = batch["tokens"].shape[0]
-        x = embed_lookup(self.embed, batch["tokens"].to(dev)).to(self.act_dtype)
+        x = shard(embed_lookup(self.embed, batch["tokens"].to(dev)).to(self.act_dtype),
+                  "batch", None, None)
         x0 = x
         for _, blocks in self._schedule():
             x, _, _ = self.shared.seq(cfg, x, x0, impl="plain")
@@ -231,7 +249,8 @@ class Zamba2LM(nn.Module):
         cfg = self.cfg
         B, S = tokens.shape
         capacity = capacity or self.cache_capacity(S)
-        x = embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype)
+        x = shard(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),
+                  "batch", None, None)
         x0 = x
         ssm, conv, ks, vs = [], [], [], []
         for _, blocks in self._schedule():
@@ -266,7 +285,8 @@ class Zamba2LM(nn.Module):
         cfg = self.cfg
         lens = cache["lens"]
         rows = None if active is None else active.nonzero()[:, 0]
-        x = embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype)
+        x = shard(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),
+                  "batch", None)
         x0 = x
         for a, blocks in self._schedule():
             x = self.shared.step(cfg, x, x0, cache["k"][a], cache["v"][a], lens, rows)

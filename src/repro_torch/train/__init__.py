@@ -1,6 +1,7 @@
-"""Training on one device: optimizers (AdamW / Adafactor), the trainer
-step factory (remat, grad accumulation, int8 gradient compression) and LR
-schedules; the port of the JAX package's ``train/``."""
+"""Training on one device or a mesh: optimizers (AdamW / Adafactor), the
+trainer step factory (remat, grad accumulation, int8 gradient compression,
+ZeRO under a sharding context) and LR schedules; the port of the JAX
+package's ``train/``."""
 
 from repro_torch.train.optimizer import (  # noqa: F401
     adafactor_init,

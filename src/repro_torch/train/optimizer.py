@@ -27,6 +27,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.config import TrainConfig
+from repro_torch.distributed.sharding import full_tensor
 
 Tensors = Dict[str, torch.Tensor]
 OptState = Dict[str, Dict[str, Union[torch.Tensor, Tensors]]]
@@ -48,10 +49,17 @@ def lr_schedule(cfg: TrainConfig, step) -> torch.Tensor:
     return cfg.learning_rate * warm * cos
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """x's float32 sum of squares; of a DTensor (a leaf sharded over a
+    mesh), its full value, the same on every rank."""
+    return full_tensor(x.float().square().sum())
+
+
 @torch.no_grad()
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    return torch.sqrt(torch.stack([x.float().square().sum() for x in tree.values()]).sum())
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares
+    (over the full leaves on a mesh)."""
+    return torch.sqrt(torch.stack([_sum_sq(x) for x in tree.values()]).sum())
 
 
 @torch.no_grad()
@@ -155,7 +163,7 @@ def adafactor_update(grads: Mapping[str, torch.Tensor], state: OptState,
     for group in stacks if stacks is not None else [[k] for k in grads]:
         # Adafactor's RMS-1 update clip, over the group
         n = sum(us[k].numel() for k in group)
-        rms = torch.sqrt(torch.stack([us[k].square().sum() for k in group]).sum() / n + 1e-30)
+        rms = torch.sqrt(torch.stack([_sum_sq(us[k]) for k in group]).sum() / n + 1e-30)
         for k in group:
             p = params[k]
             m32 = b1 * state["m"][k].float() + (1 - b1) * us[k] / torch.clamp(rms, min=1.0)

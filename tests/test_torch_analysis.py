@@ -27,6 +27,7 @@ from repro.analysis.__main__ import main as ref_main
 from repro.analysis.lint import Module as RefModule
 from repro.analysis.lint import run_rules as ref_run_rules
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 import repro_torch.analysis as port_analysis
 from repro_torch.analysis import (
     EXPECTED_CLEAN,

@@ -40,6 +40,7 @@ from repro.config import EngineConfig as RefEngineConfig  # noqa: E402
 from repro.configs import get_smoke_config as ref_smoke  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.benchmarks import engine_real, prefix_cache  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models.bridge import params_from_reference  # noqa: E402

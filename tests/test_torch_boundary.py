@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.engine import NeoEngine  # noqa: E402
@@ -51,7 +52,10 @@ for n in ("repro_torch.core.transfer", "repro_torch.core.prefix_cache",
           "repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.trainer",
           "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
           "repro_torch.distributed.collectives", "repro_torch.launch.train",
-          "repro_torch.examples.train_mini"):
+          "repro_torch.examples.train_mini", "repro_torch.distributed.sharding",
+          "repro_torch.distributed.zero", "repro_torch.distributed.elastic",
+          "repro_torch.distributed.mesh_check", "repro_torch.launch.mesh",
+          "repro_torch.testing"):
     assert n in names, n
 import chip_smoke
 bad = sorted(m for m in sys.modules

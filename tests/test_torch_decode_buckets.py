@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import executor as ex_mod  # noqa: E402

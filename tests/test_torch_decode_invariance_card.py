@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.engine import NeoEngine  # noqa: E402

@@ -19,6 +19,7 @@ from repro.core.request import Request as RefRequest  # noqa: E402
 from repro.core.request import RequestState as RefState  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.executor import PagedExecutor  # noqa: E402
 from repro_torch.core.host_attention import HostAttention  # noqa: E402

@@ -26,6 +26,7 @@ import benchmarks.fig8_fastdecode as ref_fig8  # noqa: E402
 import benchmarks.fig9_lengths as ref_fig9  # noqa: E402
 from benchmarks import common as ref_common  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.benchmarks import (common, fig6_load_latency, fig8_fastdecode,  # noqa: E402
                                     fig9_lengths, fig10a_cpu, kernels)
 from repro_torch.benchmarks import run as bench_run  # noqa: E402

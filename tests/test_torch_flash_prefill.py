@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.kernels.flash_prefill import ops  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402

@@ -13,6 +13,7 @@ from repro.configs import get_smoke_config as ref_smoke  # noqa: E402
 from repro.core.kv_cache import DualPool as RefDualPool  # noqa: E402
 from repro.core.request import Request as RefRequest  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.kv_cache import DualPool  # noqa: E402
 from repro_torch.core.request import Request  # noqa: E402

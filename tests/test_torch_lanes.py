@@ -28,6 +28,7 @@ from repro.core.scheduler import NeoScheduler as RefScheduler  # noqa: E402
 from repro.core.scheduler import PoolView as RefPoolView  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.engine import EngineStats, NeoEngine  # noqa: E402

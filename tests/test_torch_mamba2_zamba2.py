@@ -24,6 +24,7 @@ from repro.kernels.mamba2_ssd import ref as ref_ssd  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 from repro.models.mamba2 import Mamba2Block as RefMamba2Block  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.engine import NeoEngine  # noqa: E402

@@ -13,6 +13,7 @@ from repro.configs import get_smoke_config as ref_smoke  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.api import get_model, param_count  # noqa: E402

@@ -17,6 +17,7 @@ from repro.models import moe as ref_moe  # noqa: E402
 from repro.models import transformer as ref_transformer  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import MoEConfig  # noqa: E402
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import moe  # noqa: E402

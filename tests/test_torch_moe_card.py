@@ -33,6 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.executor import PagedExecutor, _in_row_slices  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402

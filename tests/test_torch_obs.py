@@ -43,6 +43,7 @@ from repro.core.engine import NeoEngine as RefEngine  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 from repro.obs.tracer import SpanTracer as RefSpanTracer  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.engine import EngineStats, NeoEngine  # noqa: E402

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.kernels.paged_decode import ops  # noqa: E402
 from repro_torch.kernels.paged_decode.ref import paged_decode_ref  # noqa: E402
 

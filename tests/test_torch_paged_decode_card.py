@@ -16,6 +16,7 @@ try:
 except ImportError:  # pragma: no cover
     HAS_HYPOTHESIS = False
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.kernels.paged_decode import ops  # noqa: E402
 from repro_torch.kernels.paged_decode.ref import paged_decode_ref  # noqa: E402
 

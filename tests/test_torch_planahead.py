@@ -20,6 +20,7 @@ from repro.launch.serve import run_online as ref_run_online  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 from repro.serving.traces import synthetic_trace as ref_synthetic_trace  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.engine import NeoEngine  # noqa: E402

@@ -21,6 +21,7 @@ from repro.kernels.rwkv6_scan import ref as ref_scan  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.engine import NeoEngine  # noqa: E402

@@ -17,6 +17,7 @@ from repro.core.request import RequestState as RefState  # noqa: E402
 from repro.core.scheduler import NeoScheduler as RefScheduler  # noqa: E402
 from repro.core.scheduler import PoolView as RefPoolView  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.perfmodel import PerfModel  # noqa: E402

@@ -23,6 +23,7 @@ from repro.launch import serve as ref_serve  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 from repro.serving.traces import get_trace as ref_get_trace  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import EngineConfig  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import engine as engine_mod  # noqa: E402

@@ -26,6 +26,7 @@ from repro.roofline.hw import get_profile as ref_get_profile  # noqa: E402
 from repro.serving import simulator as ref_sim  # noqa: E402
 from repro.serving import traces as ref_traces  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 import repro_torch.configs.paper_models  # noqa: E402,F401
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.perfmodel import PerfModel  # noqa: E402

@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked  # noqa: E402

@@ -15,6 +15,7 @@ jnp = jax.numpy
 from repro.kernels.mamba2_ssd import ref as ref_ssd  # noqa: E402
 from repro.kernels.rwkv6_scan import ref as ref_rwkv  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked, mamba2_ssd_staged  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ref as rwkv_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked, rwkv6_staged  # noqa: E402

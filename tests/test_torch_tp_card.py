@@ -31,6 +31,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.executor import ROW_SLICE, _shard_rows  # noqa: E402
 from repro_torch.models.layers import PREFILL_MIN_ROWS, swiglu_hidden  # noqa: E402

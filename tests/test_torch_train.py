@@ -41,6 +41,7 @@ from repro.data import make_batches as ref_make_batches  # noqa: E402
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 from repro.train import Trainer as RefTrainer  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.config import TrainConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -55,16 +56,6 @@ from repro_torch.train.optimizer import adafactor_init  # noqa: E402
 REPO = Path(__file__).resolve().parent.parent
 ARCH = "qwen3-0.6b"
 CFG = get_smoke_config(ARCH)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the suite runs several workers on the CPU's cores,
-    and an oversubscribed thread pool slows every worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(seed=0, cfg=CFG):

@@ -34,6 +34,7 @@ from repro.distributed.collectives import int8_roundtrip as ref_int8  # noqa: E4
 from repro.models.api import get_model as ref_get_model  # noqa: E402
 from repro.train import optimizer as ref_opt  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.config import TrainConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import as_tensors  # noqa: E402
@@ -54,16 +55,6 @@ FAMILIES = ["qwen3-0.6b", "deepseek-moe-16b", "internvl2-1b", "rwkv6-7b", "zamba
             "seamless-m4t-medium"]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4  # of the largest gradient entry of any leaf
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the suite runs several workers on the CPU's cores,
-    and an oversubscribed thread pool slows every worker."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _leaves(tree, prefix=""):
@@ -135,11 +126,44 @@ def test_remat_bitwise(family, policy):
     assert all(torch.equal(g0[k], g1[k]) for k in g0)
 
 
-def test_sp_save_needs_a_mesh():
-    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), remat_policy="sp_save")
-    model = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="P16b"):
-        model.loss(as_tensors(_batch(cfg)))
+def test_sp_save_equals_full_bitwise(family, monkeypatch):
+    """``"sp_save"`` is ``"full"`` that saves the tagged q/k/v: the same
+    loss and gradients bit for bit, with no mesh; the tag runs only under
+    it, in checkpointed bodies that hold attention (not rwkv6's, nor
+    zamba2's Mamba blocks: its shared attention is not checkpointed)."""
+    from repro_torch.models import layers
+
+    arch, tree, _, _, _, batch, _ = family
+    cfg = get_smoke_config(arch)
+    calls = []
+    op = layers._sp_gathered
+    monkeypatch.setattr(layers, "_sp_gathered", lambda x: calls.append(1) or op(x))
+    l0, a0, g0 = _port_grads(dataclasses.replace(cfg, remat_policy="full"), tree, batch)
+    assert not calls
+    l1, a1, g1 = _port_grads(dataclasses.replace(cfg, remat_policy="sp_save"), tree, batch)
+    assert torch.equal(l0, l1) and torch.equal(a0["aux"], a1["aux"])
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert bool(calls) == (arch not in ("rwkv6-7b", "zamba2-7b")), len(calls)
+
+
+def test_sp_save_matches_reference():
+    """The port's ``"sp_save"`` against the reference's, which runs with no
+    mesh too: the tolerances of :func:`test_loss_and_grads_match_reference`."""
+    arch = "qwen3-0.6b"
+    ref = ref_get_model(ref_smoke(arch).replace(remat_policy="sp_save"))
+    tree = _random_tree(arch, 2)
+    batch = _batch(ref.cfg)
+    (want, _), grads = jax.jit(jax.value_and_grad(ref.loss, has_aux=True))(
+        jax.tree.map(jnp.asarray, tree), {k: jnp.asarray(v) for k, v in batch.items()})
+    want_grads = dict(_leaves(jax.tree.map(np.asarray, grads)))
+    cfg = dataclasses.replace(get_smoke_config(arch), remat_policy="sp_save")
+    loss, _, port = _port_grads(cfg, tree, batch)
+    assert abs(float(loss) - float(want)) <= LOSS_RTOL * abs(float(want))
+    got = dict(_leaves(params_to_reference(port, cfg)))
+    scale = max(np.abs(g).max() for g in want_grads.values())
+    bad = {k: float(np.abs(got[k] - want_grads[k]).max()) for k in got
+           if np.abs(got[k] - want_grads[k]).max() > GRAD_TOL * scale}
+    assert not bad, (scale, bad)
 
 
 # ---------------------------------------------------------------------------

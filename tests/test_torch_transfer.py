@@ -20,6 +20,7 @@ from repro.core.request import Request as RefRequest  # noqa: E402
 from repro.core.request import RequestState as RefState  # noqa: E402
 from repro.core.transfer import TransferEngine as RefTransfer  # noqa: E402
 
+from repro_torch.testing import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.kv_cache import DualPool  # noqa: E402
 from repro_torch.core.request import Request, RequestState  # noqa: E402

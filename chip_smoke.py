@@ -130,7 +130,8 @@ Phases, each of which fails the run by raising:
              One card says nothing of TP's speed: its shards share one H100;
 3h. bench   — the reference's engine benchmarks and their gates through
              ``repro_torch.benchmarks.bench_trend.collect`` on full-width
-             qwen3-0.6b (bf16, perf model frozen but for the speculation
+             qwen3-0.6b at ``BENCH_LAYERS`` = 7 of its 28 layers (bf16,
+             perf model frozen but for the speculation
              section, which runs it live and attends on 8 host threads; the
              reference's traces and pools in pages, its --n cut; every
              engine's width and depth asserted): micro-batching, mixed-plan lane
@@ -138,7 +139,7 @@ Phases, each of which fails the run by raising:
              host serving, TP 1 vs 2 and the sustained A/B; prefix cache on
              = off and the sustained loops' bitwise claims asserted in fp32
              at full width and 4 layers, their bf16 matches printed; K1/K2
-             launches = shards x 28 x decode passes / prefill calls with a
+             launches = shards x 7 x decode passes / prefill calls with a
              cold row per section; the summary gated against
              ``src/repro_torch/benchmarks/BENCH_baseline_h100.json``;
              engine_real's policy table (gpu_only, neo serial, neo, fastdecode)
@@ -190,6 +191,16 @@ Phases, each of which fails the run by raising:
              ``int8_allreduce_mean`` over the mesh's data axis bitwise its
              numpy oracle.  A failed ``nccl`` start or collective fails
              the script;
+3l. dryrun — the dry run and the roofline tooling: (a) ``launch.dryrun.
+             run_cell`` on the fake 16 x 16 world with fake cuda tensors for
+             qwen3-0.6b train_4k, prefill_32k and decode_32k, rwkv6-7b and
+             zamba2-7b prefill_32k, in a process of its own started first
+             (it needs the host only), every cell ok and K1-K4 launched 0
+             times; (b) qwen3-0.6b decode_32k at 8 rows and prefill_32k at
+             1 row for real on a world-of-one ``nccl`` 1 x 1 mesh: the
+             counter's FLOPs and bytes equal to the fake trace's, resident
+             bytes = the real inputs', K2 28 launches in the prefill, and
+             t_bound / t_step <= 1.05; prints each step's model-FLOP share;
 4. parity  — each model again in fp32 on the same prompts, every emitted
              token checked against an oracle on the card that runs the plain
              attention and scans, never the kernels: the dense plain prefill
@@ -202,7 +213,8 @@ Phases, each of which fails the run by raising:
 
 Output: the card line (nvidia-smi name, power limit), per-case kernel
 lines, the serve summaries, the traced phases' and the busy-share lines,
-the ``{"train": {...}}`` and ``{"mesh_train": {...}}`` lines, one
+the ``{"train": {...}}``, ``{"mesh_train": {...}}`` and ``{"dryrun": {...}}``
+lines, one
 ``{"kernels": [...]}`` line, the parity
 counts, the card line again and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the rest of the repository beside it, the script exits non-zero and
@@ -235,14 +247,14 @@ from repro_torch.benchmarks.kernels import (BF16_FLOPS, F32_FLOPS, TOL, bound,  
 
 NEAR_TIE = 1e-3  # parity: a token within this of the oracle's max logit is a tie
 # depth of the host-attention-heavy repeats of the qwen3-0.6b path (full
-# width): 3d (b) and 3g (b), cut so that the whole run fits its time limit
-# beside phase 3h (PERF.md §4)
+# width): 3d (b), 3g (b) and every bf16 section of 3h, cut so that the
+# whole run fits its time limit on a slower host (PERF.md §4)
 HOST_PHASE_LAYERS = 7
 # depth of phase 3/3b's bf16 qwen3-0.6b runs (serial, pipelined, traced,
 # open loop; full width), of the phase-4 qwen3-0.6b fp32 parity (beside
 # phase 3j) and of the rwkv6-7b and zamba2-7b fp32 parity, cut so
 # that the whole run keeps its margin to the time limit on a slower host
-# (PERF.md §4); the busy share, 3h and the bf16 ssm serve phases keep every
+# (PERF.md §4); the busy share and the bf16 ssm serve phases keep every
 # layer
 SERVE_LAYERS = 14
 SSM_PARITY_LAYERS = {"rwkv6-7b": 16, "zamba2-7b": 40}
@@ -2347,6 +2359,7 @@ def tp_phase(torch, card):
 
 # the sizes fit the whole run into its time limit: bench_trend's --n is 12,
 # engine_real's 24 and prefix_cache --quick's turns 8 (PERF.md §4)
+BENCH_LAYERS = HOST_PHASE_LAYERS  # depth of every bf16 section (full width)
 BENCH_N = 3  # bench_trend's --n (the spec section takes max(2, min(n, 3)): 3, its own)
 BENCH_POLICY_N = 3  # engine_real's --n for the policy table
 BENCH_PREFIX_N = 4  # prefix_cache's turns
@@ -2439,8 +2452,8 @@ class LaunchAudit:
 def bench_phase(torch, card, *, n=BENCH_N, policy_n=BENCH_POLICY_N, prefix_n=BENCH_PREFIX_N):
     """engine_real's default policy table once (recorded), then
     ``repro_torch.benchmarks.bench_trend.collect`` at full width on the card
-    (qwen3-0.6b bf16, the reference's traces and pools in pages, perf model
-    frozen but for the spec section, which runs it live on
+    (qwen3-0.6b bf16 at ``BENCH_LAYERS`` layers, the reference's traces and
+    pools in pages, perf model frozen but for the spec section, which runs it live on
     ``BENCH_SPEC_HOST_THREADS`` host threads) with the table's fastdecode
     burst as its shared run; prefix cache on = off and the sustained loops'
     bitwise claims asserted in fp32 at full width and 4 layers (their bf16
@@ -2452,7 +2465,7 @@ def bench_phase(torch, card, *, n=BENCH_N, policy_n=BENCH_POLICY_N, prefix_n=BEN
     from repro_torch.benchmarks.common import bench_config, free_params
 
     t0 = time.perf_counter()
-    full = bench_config("qwen3-0.6b")
+    full = bench_config("qwen3-0.6b", layers=BENCH_LAYERS)
     audit = LaunchAudit(full.d_model, full.num_layers, BENCH_RECHECK_LAYERS)
     restore = audit.install()
     raw = {"wall_s": {}}
@@ -2460,14 +2473,14 @@ def bench_phase(torch, card, *, n=BENCH_N, policy_n=BENCH_POLICY_N, prefix_n=BEN
         t_table = time.perf_counter()
         with audit.section("policy_table"):
             table, fastdecode = engine_real.run_policy_table(policy_n, device="cuda",
-                                                             ewma_alpha=0.0)
+                                                             layers=BENCH_LAYERS, ewma_alpha=0.0)
         raw["wall_s"]["policy_table"] = round(time.perf_counter() - t_table, 2)
         free_card(torch)
         rc, summary = bench_trend.collect(
             n, bitwise_dtype="float32", recheck_layers=BENCH_RECHECK_LAYERS,
             prefix_n=prefix_n, spec_ewma_alpha=None, spec_host_threads=BENCH_SPEC_HOST_THREADS,
             fastdecode=fastdecode if policy_n == n else None, raw=raw, log=log,
-            section=audit.section, device="cuda", ewma_alpha=0.0)
+            section=audit.section, device="cuda", layers=BENCH_LAYERS, ewma_alpha=0.0)
     finally:
         restore()
         free_params()
@@ -3063,6 +3076,324 @@ def mesh_train_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3l: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+# 3l (a): run_cell on the fake 16 x 16 world (fake cuda tensors)
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "prefill_32k"),
+                ("qwen3-0.6b", "decode_32k"), ("rwkv6-7b", "prefill_32k"),
+                ("zamba2-7b", "prefill_32k"))
+# 3l (b): qwen3-0.6b cells run for real on the one card, each global batch
+# cut to fit its 80 GB (PERF.md §4): decode_32k 128 -> 8 rows (a bf16 KV
+# cache of 8 x 32,768 x 114,688 B = 30.1 GB), prefill_32k 32 -> 1
+DRYRUN_REAL = {"decode_32k": 8, "prefill_32k": 1}
+DRYRUN_ARCH = "qwen3-0.6b"
+DRYRUN_TIMED = 5  # timed steps per cell, after one warm-up
+DRYRUN_BOUND_SLACK = 1.05  # t_bound / t_step above this: the count is wrong
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
+DRYRUN_WAIT_S = 900  # the fake traces' process, joined at 3l
+# 3l (b)'s no-context check in float32, where the two paths may differ by
+# their GEMMs' summation order only: qwen3-0.6b at full width, the cells
+# cut to a 4,096-token cache / prompt.  In bf16 at random weights that
+# order alone moved a decode's logits by 0.203 on one H100 (PERF.md §6):
+# the bf16 cells' difference is recorded, not asserted.
+DRYRUN_F32 = {"decode_32k": (8, 4096), "prefill_32k": (1, 4096)}
+
+
+def dryrun_real_shapes():
+    from repro_torch.config import SHAPES_BY_NAME, ShapeConfig
+
+    return {name: ShapeConfig(name, SHAPES_BY_NAME[name].seq_len, batch,
+                              SHAPES_BY_NAME[name].kind)
+            for name, batch in DRYRUN_REAL.items()}
+
+
+def dryrun_traces(out_path: str) -> None:
+    """3l's fake traces, run in a process of their own that ``main`` starts
+    first, so that they overlap the card's phases (they need the host, not
+    the card): (a) ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` on the
+    fake 16 x 16 world with fake cuda tensors (the kernels' custom ops count
+    their work and launch nothing: K1-K4 must stay at 0); (b) the fake
+    traces of 3l (b)'s cut cells on a fake world of one.  Writes a JSON
+    summary to ``out_path``; raises on any failure."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import start_fake_world
+
+    torch.set_num_threads(1)  # leave the host's cores to the card's phases,
+    os.nice(19)  # and their turn first (their times are measured)
+    zero_counters()
+    res = {"cells": {}, "real_cells": {}}
+    for arch, shape in DRYRUN_CELLS:
+        t = time.perf_counter()
+        art = run_cell(arch, shape, out_dir=DRYRUN_DIR, verbose=False)
+        r = art["roofline"]
+        res["cells"][f"{arch}|{shape}"] = {
+            "ok": art["ok"], "seconds": time.perf_counter() - t,
+            "flops_per_chip": art["hlo_flops_per_chip"],
+            "resident_bytes_per_chip": art["resident_bytes_per_chip"],
+            "bottleneck": r["bottleneck"], "t_bound_s": max(r["t_compute_s"], r["t_memory_s"],
+                                                            r["t_collective_s"]),
+            "roofline_fraction": r["roofline_fraction"], "wire_GB": art["collectives"]["wire_GB"]}
+    res["kernel_launches"] = counters()
+    start_fake_world(1)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    cfg = get_config(DRYRUN_ARCH)
+    for name, shape in dryrun_real_shapes().items():
+        c = build_cell(cfg, shape, mesh).lower(mesh, "cuda")
+        res["real_cells"][name] = {"flops": c.total_flops(), "bytes": c.total_traffic_bytes(),
+                                   "collectives": c.collective_stats().summary()}
+    res["kernel_launches_real_cells_fake"] = counters()
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def start_dryrun_traces():
+    """Start :func:`dryrun_traces` in a child process; returns (process,
+    JSON path, log path)."""
+    import subprocess
+
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    out = os.path.join(DRYRUN_DIR, "traces.json")
+    log_path = os.path.join(DRYRUN_DIR, "traces.log")
+    if os.path.exists(out):
+        os.remove(out)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT, os.environ.get("PYTHONPATH", "")]))
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c",
+                                 f"import chip_smoke as cs; cs.dryrun_traces({out!r})"],
+                                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log_path
+
+
+def _local_bytes(tree) -> int:
+    """Bytes of every tensor in ``tree`` (a DTensor's local block)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_local_bytes(v) for v in tree)
+    if isinstance(tree, DTensor):
+        tree = tree.to_local()
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
+
+
+def plain_twin(torch, cfg, model, args):
+    """``model`` and ``args`` (DTensors on a 1 x 1 mesh) as plain tensors:
+    a model on the same weights and the same inputs for the no-context
+    path (no copy: a 1 x 1 DTensor's local block is the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.api import get_model
+
+    def plain(tree):
+        if isinstance(tree, dict):
+            return {k: plain(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(plain(v) for v in tree)
+        return tree.to_local() if isinstance(tree, DTensor) else tree
+
+    twin = get_model(cfg, device="meta")
+    for name, p in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        mod = twin.get_submodule(owner) if owner else twin
+        mod._parameters[leaf] = torch.nn.Parameter(plain(p.detach()), requires_grad=False)
+    return twin, plain(args)
+
+
+def no_context_diff(torch, cell, ctx, model, args, tol: float) -> dict:
+    """The step's logits on the mesh against the same step with no context
+    on the same weights and inputs (:func:`plain_twin`): max abs and
+    relative (to the largest |logit|) difference, whether every logit is
+    within ``tol`` abs + rel, bitwise or not, and the rows whose argmax
+    agrees."""
+    from repro_torch.distributed.sharding import activate
+
+    with activate(ctx):
+        mesh_logits = cell.step(model, *args)[0].to_local()
+    twin, plain_args = plain_twin(torch, cell.arch, model, args)
+    plain_logits = cell.step(twin, *plain_args)[0]
+    torch.cuda.synchronize()
+    if mesh_logits.shape != plain_logits.shape:
+        raise AssertionError(f"3l (b): logits {tuple(mesh_logits.shape)} on the mesh, "
+                             f"{tuple(plain_logits.shape)} with no context")
+    a, b = mesh_logits.float(), plain_logits.float()
+    err = float((a - b).abs().max())
+    return {"max_abs_err": err, "rel_err": err / max(float(b.abs().max()), 1e-30),
+            "tol": tol, "within_tol": bool(torch.allclose(a, b, atol=tol, rtol=tol)),
+            "bitwise": _same(torch, mesh_logits, plain_logits),
+            "argmax_agree": int((a.argmax(-1) == b.argmax(-1)).sum()), "rows": a.shape[0]}
+
+
+def dryrun_f32_check(torch, mesh) -> dict:
+    """3l (b)'s asserted no-context check: ``DRYRUN_F32``'s float32 cells,
+    each step's logits within ``TOL["float32"]`` of the no-context path's."""
+    from repro_torch.config import SHAPES_BY_NAME, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cells import build_cell
+
+    cfg = get_config(DRYRUN_ARCH).replace(param_dtype="float32", activation_dtype="float32")
+    tol, out = TOL["float32"], {}
+    for seed, (name, (batch, seq)) in enumerate(DRYRUN_F32.items()):
+        shape = ShapeConfig(f"{name}_f32", seq, batch, SHAPES_BY_NAME[name].kind)
+        cell = build_cell(cfg, shape, mesh)
+        g = torch.Generator(device="cuda").manual_seed(200 + seed)
+        model, args = cell.materialize("cuda", mesh, generator=g)
+        d = no_context_diff(torch, cell, cell.context(mesh), model, args, tol)
+        if not d["within_tol"]:
+            raise AssertionError(f"3l (b) {shape.name}: the mesh step's float32 logits differ "
+                                 f"from the no-context path's by {d['max_abs_err']:.3e} "
+                                 f"(tol {tol} abs + rel)")
+        out[shape.name] = d
+        log(f"[dryrun] (b) {shape.name} B={batch} S={seq} float32: logits vs the no-context "
+            f"path max abs err {d['max_abs_err']:.3e}{' (bitwise)' if d['bitwise'] else ''}, "
+            f"argmax {d['argmax_agree']}/{d['rows']}")
+        del model, args
+        free_card(torch)
+    return out
+
+
+def dryrun_phase(torch, card, traces):
+    """Phase 3l: the dry run and the roofline tooling.  (a) joins the fake
+    traces' process (:func:`dryrun_traces`): every cell ``ok``, K1-K4
+    launched 0 times there.  (b) qwen3-0.6b's cut cells (``DRYRUN_REAL``)
+    for real on a world-of-one ``nccl`` group and a 1 x 1 mesh, bf16
+    random weights from a seeded generator: the counter's FLOPs and bytes
+    of the real step exactly those of its fake trace, the resident bytes
+    the real inputs' bytes, the prefill launching K2 once per layer, and
+    the step's median time at least the report's ``t_bound`` (a ratio past
+    ``DRYRUN_BOUND_SLACK`` fails: the count is wrong); each step's logits
+    against the no-context path on the same weights and inputs, recorded
+    in bf16 and held to ``TOL["float32"]`` in :func:`dryrun_f32_check`."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import activate
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import free_port
+    from repro_torch.roofline.analysis import build_report
+    from repro_torch.roofline.opcount import OpCounter
+    from repro_torch.roofline.structural import structural_bytes
+
+    t0 = time.perf_counter()
+    proc, out_path, log_path = traces
+    rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"3l (a): the fake traces failed (exit {rc}):\n{tail}")
+    with open(out_path) as f:
+        fake = json.load(f)
+    wait_s = time.perf_counter() - t0
+    bad = [k for k, v in fake["cells"].items() if not v["ok"]]
+    if bad or len(fake["cells"]) != len(DRYRUN_CELLS):
+        raise AssertionError(f"3l (a): cells not ok: {bad}")
+    for key in ("kernel_launches", "kernel_launches_real_cells_fake"):
+        if any(fake[key].values()):
+            raise AssertionError(f"3l (a): a kernel launched on a fake trace: {fake[key]}")
+    for k, v in fake["cells"].items():
+        log(f"[dryrun] (a) {k} 16x16 fake cuda: ok in {v['seconds']:.1f} s, "
+            f"{v['flops_per_chip']:.4e} FLOPs/chip, resident {v['resident_bytes_per_chip']}"
+            f" B/chip, bound by {v['bottleneck']} ({v['t_bound_s']:.4e} s)")
+    out = {"card": card, "fake_cells": fake["cells"], "fake_wait_s": wait_s,
+           "kernel_launches_fake": fake["kernel_launches"], "real": {}}
+
+    cfg = get_config(DRYRUN_ARCH)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        for seed, (name, shape) in enumerate(dryrun_real_shapes().items()):
+            cell = build_cell(cfg, shape, mesh)
+            ctx = cell.context(mesh)
+            g = torch.Generator(device="cuda").manual_seed(100 + seed)
+            model, args = cell.materialize("cuda", mesh, generator=g)
+            real_bytes = _local_bytes(args)
+            if real_bytes != cell.resident_bytes_per_chip():
+                raise AssertionError(f"3l (b) {name}: resident_bytes_per_chip "
+                                     f"{cell.resident_bytes_per_chip()} != the real inputs' "
+                                     f"{real_bytes} B")
+            zero_counters()
+            with activate(ctx):
+                with OpCounter() as c:
+                    res = cell.step(model, *args)
+                del res
+            torch.cuda.synchronize()
+            launched = counters()
+            want = fake["real_cells"][name]
+            if (c.total_flops(), c.total_traffic_bytes()) != (want["flops"], want["bytes"]):
+                raise AssertionError(f"3l (b) {name}: the real step counts "
+                                     f"{c.total_flops()} FLOPs / {c.total_traffic_bytes()} B, "
+                                     f"its fake trace {want['flops']} / {want['bytes']}")
+            k2 = cfg.num_layers if shape.kind == "prefill" else 0
+            want_l = {k: 0 for k in launched}
+            want_l["flash_prefill"] = k2
+            if launched != want_l:
+                raise AssertionError(f"3l (b) {name}: launches {launched} != {want_l}")
+            times = []
+            with activate(ctx):
+                for i in range(DRYRUN_TIMED + 1):
+                    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    s.record()
+                    res = cell.step(model, *args)
+                    e.record()
+                    torch.cuda.synchronize()
+                    del res
+                    if i:
+                        times.append(s.elapsed_time(e) / 1e3)
+            t_step = statistics.median(times)
+            no_ctx = no_context_diff(torch, cell, ctx, model, args, TOL[cfg.activation_dtype])
+            report = build_report(cfg, shape, "1x1", 1, flops_per_chip=c.total_flops(),
+                                  bytes_per_chip=structural_bytes(cfg, shape, mesh)["total"],
+                                  collectives=c.collective_stats(),
+                                  memory_per_chip=cell.resident_bytes_per_chip())
+            ratio = report.t_bound / t_step
+            row = {"shape": name, "global_batch": shape.global_batch,
+                   "seq_len": shape.seq_len, "flops": c.total_flops(),
+                   "traffic_bytes": c.total_traffic_bytes(),
+                   "structural_bytes": report.hlo_bytes,
+                   "resident_bytes": real_bytes, "kernel_launches": launched,
+                   "t_compute_s": report.t_compute, "t_memory_s": report.t_memory,
+                   "t_collective_s": report.t_collective, "t_bound_s": report.t_bound,
+                   "bottleneck": report.bottleneck, "t_step_s": t_step,
+                   "t_step_runs_s": times, "t_bound_over_t_step": ratio,
+                   "mfu": report.mfu(t_step), "model_flops": report.model_flops_global,
+                   "useful_flops_ratio": report.useful_flops_ratio,
+                   "logits_vs_no_context": no_ctx}
+            out["real"][name] = row
+            log(f"[dryrun] (b) {DRYRUN_ARCH} {name} B={shape.global_batch} on the card: "
+                f"real = fake {c.total_flops():.6e} FLOPs and {c.total_traffic_bytes():.6e} B; "
+                f"resident {real_bytes} B = cell's; K2 {launched['flash_prefill']}; "
+                f"t_step {t_step * 1e3:.3f} ms, t_bound {report.t_bound * 1e3:.3f} ms "
+                f"({report.bottleneck})")
+            log(f"[dryrun] (b) {name}: mfu {row['mfu']:.4f}, t_bound / t_step {ratio:.4f}; "
+                f"bf16 logits vs the no-context path: max abs err "
+                f"{no_ctx['max_abs_err']:.3e} (rel {no_ctx['rel_err']:.3e})"
+                f"{' (bitwise)' if no_ctx['bitwise'] else ''}, argmax "
+                f"{no_ctx['argmax_agree']}/{no_ctx['rows']} (recorded)")
+            if ratio > DRYRUN_BOUND_SLACK:
+                raise AssertionError(f"3l (b) {name}: t_bound / t_step = {ratio:.4f} > "
+                                     f"{DRYRUN_BOUND_SLACK}: the count is wrong")
+            del model, args
+            free_card(torch)
+        out["f32_no_context"] = dryrun_f32_check(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"dryrun": out}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the contiguous paths: rwkv6-7b and zamba2-7b
 # ---------------------------------------------------------------------------
 
@@ -3189,11 +3520,13 @@ def ssm_parity_phase(torch, cfg, device, trace):
                 worst_tie_gap=worst_gap)
 
 
-def scan_entry(name, source, replaces, launched, t, shape, train_launched, mesh_launched):
+def scan_entry(name, source, replaces, launched, t, shape, train_launched, mesh_launched,
+               dryrun_launched):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launched[name], "stage_launches": launched[name + "_stages"],
             "launches_train_path": train_launched[name],
             "launches_mesh_train_path": mesh_launched[name],
+            "launches_dryrun_path": dryrun_launched[name],
             "max_abs_err": t["max_abs_err"], "max_abs_err_sweep": t["max_abs_err_sweep"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -3214,14 +3547,26 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 parity: full float32 GEMMs
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 3l (a)'s fake traces need the host only: they run beside the
+    # card's phases, in a process of their own, joined at 3l
+    traces = start_dryrun_traces()
+    try:
+        return run_phases(torch, t_start, traces)
+    finally:
+        if traces[0].poll() is None:
+            traces[0].kill()
+            traces[0].wait()
+
+
+def run_phases(torch, t_start, traces) -> int:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
 
     def elapsed(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
-
-    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 parity: full float32 GEMMs
-    torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
 
     # -- phase 1: setup ----------------------------------------------------
     card = card_line()
@@ -3326,6 +3671,8 @@ def main() -> int:
     elapsed("phase 3j (train)")
     mesh_train = mesh_train_phase(torch, card)
     elapsed("phase 3k (mesh train)")
+    dryrun = dryrun_phase(torch, card, traces)
+    elapsed("phase 3l (dry run)")
     for dt_name in ("float32", "bfloat16"):
         worst[dt_name] = max(worst[dt_name], tp_t[1][dt_name])
         flash_worst[dt_name] = max(flash_worst[dt_name], tp_t[2][dt_name])
@@ -3387,6 +3734,9 @@ def main() -> int:
                                    for k, v in examples.items()},
         "launches_train_path": train["kernel_launches"]["paged_decode"],
         "launches_mesh_train_path": mesh_train["kernel_launches"]["paged_decode"],
+        "launches_dryrun_path": dryrun["kernel_launches_fake"]["paged_decode"],
+        "launches_dryrun_real_decode": dryrun["real"]["decode_32k"]["kernel_launches"][
+            "paged_decode"],
         "max_abs_err": main_t["max_abs_err"],
         "max_abs_err_sweep": worst,
         "ms": main_t["ms"],
@@ -3428,6 +3778,9 @@ def main() -> int:
                                    for k, v in examples.items()},
         "launches_train_path": train["kernel_launches"]["flash_prefill"],
         "launches_mesh_train_path": mesh_train["kernel_launches"]["flash_prefill"],
+        "launches_dryrun_path": dryrun["kernel_launches_fake"]["flash_prefill"],
+        "launches_dryrun_real_prefill": dryrun["real"]["prefill_32k"]["kernel_launches"][
+            "flash_prefill"],
         "max_abs_err": q_t["max_abs_err"],
         "max_abs_err_sweep": flash_worst,
         "ms": q_t["ms"],
@@ -3451,12 +3804,14 @@ def main() -> int:
                   "src/repro/kernels/rwkv6_scan/kernel.py:91",
                   ssm["rwkv6-7b"][0]["kernel_launches"], rwkv6_t,
                   "B=1 T=512 H=64 N=64 bf16 r/k/v, f32 w/u/state",
-                  train["kernel_launches"], mesh_train["kernel_launches"]),
+                  train["kernel_launches"], mesh_train["kernel_launches"],
+                  dryrun["kernel_launches_fake"]),
         scan_entry("mamba2_ssd", "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
                    "src/repro/kernels/mamba2_ssd/kernel.py:86",
                    ssm["zamba2-7b"][0]["kernel_launches"], ssd_t,
                    "B=1 T=512 H=112 P=64 N=64 bf16 x/B/C, f32 dt/A/D/state",
-                   train["kernel_launches"], mesh_train["kernel_launches"])]}))
+                   train["kernel_launches"], mesh_train["kernel_launches"],
+                   dryrun["kernel_launches_fake"])]}))
 
     # -- phase 4: parity on the card -----------------------------------------
     for pipeline in (False, True):

@@ -32,6 +32,11 @@ import torch
 
 from repro_torch.benchmarks.common import print_table, save_json
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_prefill import ops as flash_ops
+from repro_torch.kernels.flash_prefill.ops import prefill_pairs  # noqa: F401  (re-exported)
+from repro_torch.kernels.mamba2_ssd import ops as mamba2_ops
+from repro_torch.kernels.paged_decode import ops as paged_ops
+from repro_torch.kernels.rwkv6_scan import ops as rwkv6_ops
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -76,37 +81,18 @@ def _bounded(nbytes, flops, flops_per_s):
 
 
 def bound(q, lens, page, KV, hd):
-    """Least time for the work this input needs: each needed K/V token, q,
-    the output, lens and the needed block-table entries once; 4*H*hd FLOPs
-    per token (f32 math, outside the tensor cores)."""
-    el = q.element_size()
-    B, H, _ = q.shape
-    tok = sum(lens)
-    nbytes = (tok * KV * hd * 2 * el + 2 * q.numel() * el + 4 * B
-              + 4 * sum(-(-n // page) for n in lens))
-    return _bounded(nbytes, 4 * H * hd * tok, F32_FLOPS)
-
-
-def prefill_pairs(S, causal, window):
-    """(query, key) pairs one head attends over at length S."""
-    if not causal and not window:
-        return S * S
-    total = 0
-    for i in range(S):
-        lo = max(0, i - window + 1) if window else 0
-        hi = i if causal else S - 1
-        total += hi - lo + 1
-    return total
+    """Least time for the work this input needs (``paged_decode.ops.work``:
+    each needed K/V token, q, the output, lens and the needed block-table
+    entries once; 4*H*hd FLOPs per token), the FLOPs at the f32 rate
+    (outside the tensor cores)."""
+    return _bounded(*paged_ops.work(q, lens, page, KV, hd), F32_FLOPS)
 
 
 def flash_bound(q, k, causal, window, flops_per_s=BF16_FLOPS):
-    """Each of q, k, v and the output once at 3.35 TB/s; the 4 hd FLOPs of
-    QK^T and PV per (query, key) pair a head sees (half the square when
-    causal) at ``flops_per_s`` (the bf16 tensor-core rate by default)."""
-    B, S, H, hd = q.shape
-    el = q.element_size()
-    nbytes = 2 * q.numel() * el + 2 * k.numel() * el
-    return _bounded(nbytes, 4 * hd * B * H * prefill_pairs(S, causal, window), flops_per_s)
+    """Least time for ``flash_prefill.ops.work`` (q, k, v and the output
+    once; 4 hd FLOPs per (query, key) pair a head sees) at 3.35 TB/s and
+    ``flops_per_s`` (the bf16 tensor-core rate by default)."""
+    return _bounded(*flash_ops.work(q, k, k, causal, window), flops_per_s)
 
 
 def scan_bound(nbytes, flops, dtype):
@@ -117,24 +103,15 @@ def scan_bound(nbytes, flops, dtype):
 
 
 def rwkv6_bound(args):
-    """Each input and output byte once; 4 N^2 operations per token per head
-    (the recurrence's own count: y = r.(S + u k v^T) and S <- w S + k v^T)."""
-    r, k, v, w, u, s0 = args
-    B, T, H, N = r.shape
-    nbytes = sum(t.numel() * t.element_size() for t in args) + r.numel() * r.element_size() \
-        + s0.numel() * 4
-    return scan_bound(nbytes, 4 * N * N * B * T * H, str(r.dtype).split(".")[-1])
+    """Least time for ``rwkv6_scan.ops.work`` (each input and output byte
+    once; 4 N^2 operations per token per head)."""
+    return scan_bound(*rwkv6_ops.work(*args), str(args[0].dtype).split(".")[-1])
 
 
 def mamba2_bound(args):
-    """Each input and output byte once; 5 N P operations per token per head
-    (the recurrence's own count: S <- a S + B (dt x), y = C.S)."""
-    x, dt, A, Bm, Cm, D, s0 = args
-    B, T, H, P = x.shape
-    N = Bm.shape[-1]
-    nbytes = sum(t.numel() * t.element_size() for t in args) + x.numel() * x.element_size() \
-        + s0.numel() * 4
-    return scan_bound(nbytes, 5 * N * P * B * T * H, str(x.dtype).split(".")[-1])
+    """Least time for ``mamba2_ssd.ops.work`` (each input and output byte
+    once; 5 N P operations per token per head)."""
+    return scan_bound(*mamba2_ops.work(*args), str(args[0].dtype).split(".")[-1])
 
 
 def paged_library_call(q, kp, vp, bt, ln, page):

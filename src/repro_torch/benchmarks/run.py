@@ -2,8 +2,8 @@
 ``benchmarks/run.py``): one section per paper figure, the kernel table and
 the real-engine benchmarks.  The figures run on the host (the simulator);
 the kernel table and the engine sections on the card unless ``--device
-cpu``.  ``roofline_table`` has no counterpart yet: it reads the dry-run
-artifacts, which the port does not make.
+cpu``; the roofline table reads the dry-run artifacts
+(``repro_torch.launch.dryrun``).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run --quick
   PYTHONPATH=src python -m repro_torch.benchmarks.run --quick --skip-real --device cpu
@@ -32,7 +32,8 @@ def main(argv=None) -> int:
     t0 = time.time()
 
     from repro_torch.benchmarks import (engine_real, fig6_load_latency, fig8_fastdecode,
-                                        fig9_lengths, fig10a_cpu, kernels, prefix_cache)
+                                        fig9_lengths, fig10a_cpu, kernels, prefix_cache,
+                                        roofline_table)
 
     print("#" * 70)
     print("# NEO port benchmark suite (simulator figures use the real")
@@ -49,6 +50,7 @@ def main(argv=None) -> int:
     if not args.skip_real:
         sections.append(("Real engine (Fig. 10b spirit)", lambda: engine_real.main(eng)))
         sections.append(("Prefix cache (multiturn)", lambda: prefix_cache.main(q + eng)))
+    sections.append(("Roofline table", lambda: roofline_table.main()))
 
     failures = []
     for name, fn in sections:

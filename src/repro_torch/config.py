@@ -1,8 +1,9 @@
 """Configuration of the PyTorch port of the NEO engine.
 
 Every architecture is described by an :class:`ArchConfig`, the serving
-runtime by an :class:`EngineConfig` and a training run by a
-:class:`TrainConfig`.  All are plain frozen dataclasses so
+runtime by an :class:`EngineConfig`, a training run by a
+:class:`TrainConfig` and a dry-run cell's input shape by a
+:class:`ShapeConfig`.  All are plain frozen dataclasses so
 they hash, compare and print deterministically; architectures are registered
 by name in :mod:`repro_torch.configs` (``--arch <id>`` on every CLI).  The
 field set and defaults mirror the JAX package's config so both sides describe
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Sub-configs
@@ -199,6 +200,45 @@ class ArchConfig:
         from repro_torch.models.api import active_param_count
 
         return active_param_count(self)
+
+
+# ---------------------------------------------------------------------------
+# Shape config (the dry run's input-shape cells)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+    @property
+    def is_long_context(self) -> bool:
+        return self.seq_len >= 262_144
+
+
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4096, global_batch=256, kind="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode")
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME: Mapping[str, ShapeConfig] = {s.name: s for s in ALL_SHAPES}
+
+
+def shapes_for_arch(cfg: ArchConfig) -> Tuple[ShapeConfig, ...]:
+    """The shape set of one architecture: ``long_500k`` needs sub-quadratic
+    attention, so only the ssm and hybrid families (rwkv6, zamba2) take it."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.family in ("ssm", "hybrid"):
+        shapes.append(LONG_500K)
+    return tuple(shapes)
 
 
 # ---------------------------------------------------------------------------

@@ -11,13 +11,16 @@ import torch
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: the card unless ``device`` says
     otherwise.  With no CUDA and no explicit device this raises instead of
-    falling back to the CPU, so a run never reports CPU numbers as the card's."""
+    falling back to the CPU, so a run never reports CPU numbers as the card's.
+    ``"meta"`` builds shapes without storage."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     dev = torch.device(device)
+    if dev.type == "meta":  # shapes and dtypes only (the dry run's specs)
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     if dev.type not in ("cuda", "cpu"):

@@ -46,6 +46,7 @@ once.
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 import threading
 from dataclasses import dataclass
@@ -270,6 +271,70 @@ def local(x, *logical: Optional[str]) -> torch.Tensor:
     grad = [Partial() if n in batch and isinstance(pl, Replicate) else pl
             for n, pl in zip(x.device_mesh.mesh_dim_names, x.placements)]
     return x.to_local(grad_placements=grad)
+
+
+def on_blocks(fn, args: Sequence[torch.Tensor], in_axes: Sequence[Sequence[Optional[str]]],
+              out_axes: Sequence[Sequence[Optional[str]]]):
+    """``fn`` over this rank's blocks, for a computation that is independent
+    per batch row and per head (a kernel, a scan).  When an argument is a
+    DTensor under an active context on a mesh, every argument is laid out
+    as its ``in_axes`` and passed as its local block, contiguous (a plain
+    one, the same full tensor on every rank, is distributed without
+    communication; a DTensor as its block, its gradient a partial sum along
+    the mesh dims over which it is replicated and the work is split);
+    ``fn``'s outputs (a tensor or a tuple) come back through
+    :func:`from_local`, laid out as ``out_axes``.  Otherwise ``fn(*args)``."""
+    ctx = current_context()
+    if ctx is None or not ctx.distributed or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    # a logical axis that some argument's dim does not divide (one batch row
+    # over many data ranks) stays whole: a block of every rank is then the
+    # same size, which DTensor.from_local assumes
+    sizes = mesh_sizes(ctx.mesh)
+    names = set(ctx.mesh.mesh_dim_names)
+
+    def shards(name) -> int:
+        ax = ctx.rules.get(name)
+        return math.prod(sizes[a] for a in ((ax,) if isinstance(ax, str) else ax or ())
+                         if a in names)
+
+    uneven = {n for a, ax in zip(args, in_axes) for d, n in zip(a.shape, ax)
+              if n is not None and d % shards(n)}
+    in_axes, out_axes = ([tuple(None if n in uneven else n for n in ax) for ax in axes]
+                         for axes in (in_axes, out_axes))
+    # each rank works on its own block along the mesh dims that split an
+    # output; an argument replicated along such a dim (Mamba2's B and C,
+    # shared by the heads) gets its gradient there as a partial sum
+    split = {i for ax in out_axes for i, p in enumerate(ctx.placements(ax)) if p.is_shard()}
+
+    def block(a, ax):
+        if not isinstance(a, DTensor):
+            return ctx.distribute(a, ax).to_local()
+        a = shard(a, *ax)
+        return a.to_local(grad_placements=[Partial() if i in split and p.is_replicate() else p
+                                           for i, p in enumerate(a.placements)])
+
+    blocks = [block(a, ax).contiguous() for a, ax in zip(args, in_axes)]
+    out = fn(*blocks)
+    outs = out if isinstance(out, tuple) else (out,)
+    wrapped = tuple(from_local(o, *ax) for o, ax in zip(outs, out_axes))
+    return wrapped if isinstance(out, tuple) else wrapped[0]
+
+
+def reduce_partials(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``tree`` with every DTensor leaf that holds a partial sum reduced
+    (``Replicate`` on those mesh dims); plain leaves as they are.  A decode
+    writes into its cache in place, and DTensor writes the new value into
+    every rank's term of a partial sum, which then counts it once per rank:
+    a prefill's cache may come back partial (a row-parallel product's
+    output), so a decode reduces it first."""
+    out = {}
+    for k, t in tree.items():
+        if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+            t = t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                               for p in t.placements])
+        out[k] = t
+    return out
 
 
 def batch_sum(t: torch.Tensor):

@@ -16,6 +16,19 @@ masked).
 
 ``flash_prefill.launches`` counts kernel launches (one per call on CUDA
 tensors, either kernel).
+
+A real CUDA tensor launches the kernel directly, through
+``repro_torch.roofline.opcount.launch``, which counts the call as the op
+:data:`OP` in an active counter; a ``meta`` or fake tensor goes through
+:data:`OP`, ``repro_torch::flash_prefill``, a ``torch.library`` custom op
+whose real implementation is the same launch and whose fake implementation
+gives an empty output of the right shape and launches nothing, so a traced
+step (``repro_torch.launch.dryrun``) passes through the wrapper. The op's
+dispatch costs the card's host 19-39 µs a call, so real tensors skip it
+(``benchmarks/op_dispatch.py``). :func:`work` is the kernel's work (bytes
+and FLOPs) as a function of its inputs' shapes, which the kernel table's
+bound and the roofline's counter (``repro_torch.roofline.opcount``) both
+read.
 """
 
 from __future__ import annotations
@@ -24,11 +37,14 @@ import ctypes
 import functools
 import math
 from pathlib import Path
+from typing import Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.roofline.opcount import launch as counted_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_prefill.cu"
 
@@ -127,6 +143,43 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     return out
 
 
+def prefill_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head attends over at length S."""
+    if not causal and not window:
+        return S * S
+    total = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        hi = i if causal else S - 1
+        total += hi - lo + 1
+    return total
+
+
+def work(q, k, v, causal: bool = True, window: int = 0) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one call: q, k, v and the output once; 4 hd FLOPs
+    (QK^T and PV) per (query, key) pair a head sees (half the square when
+    causal)."""
+    B, S, H, hd = q.shape
+    el = q.element_size()
+    return (2 * q.numel() * el + 2 * k.numel() * el,
+            4 * hd * B * H * prefill_pairs(S, causal, window))
+
+
+@torch.library.custom_op("repro_torch::flash_prefill", mutates_args=())
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+        window: int) -> torch.Tensor:
+    return _launch(q, k, v, causal, window)
+
+
+@_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+OP = torch.ops.repro_torch.flash_prefill
+OP_WORK = work
+
+
 def flash_prefill(
     q: torch.Tensor,  # [B, S, H, hd]
     k: torch.Tensor,  # [B, S, KV, hd]
@@ -141,9 +194,12 @@ def flash_prefill(
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k, v, causal, window)
+    if isinstance(q, FakeTensor) or q.device.type == "meta":
+        return OP(q, k, v, causal, window)
+    # a real CUDA tensor skips the op's dispatch (its host time; PERF.md)
+    return counted_launch(OP, _launch, q, k, v, causal, window)
 
 
 flash_prefill.launches = 0

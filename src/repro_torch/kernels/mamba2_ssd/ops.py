@@ -20,6 +20,18 @@ on CUDA tensors); ``mamba2_ssd.stage_launches`` counts the stages launched
 (three per call, one when T = 0: only the state pass runs).
 :func:`mamba2_decode_step` is the plain single-token recurrence
 (the reference's ``ops.mamba2_decode_step``; no TPU kernel behind it).
+
+A real CUDA tensor launches the kernel directly, through
+``repro_torch.roofline.opcount.launch``, which counts the call as the op
+:data:`OP` in an active counter; a ``meta`` or fake tensor goes through
+:data:`OP`, ``repro_torch::mamba2_ssd``, a ``torch.library`` custom op whose
+real implementation is the same launch and whose fake implementation gives
+an empty output of the right shape and launches nothing, so a traced step
+(``repro_torch.launch.dryrun``) passes through the wrapper. The op's
+dispatch costs the card's host 19-39 µs a call, so real tensors skip it
+(``benchmarks/op_dispatch.py``). :func:`work` is the kernel's work (bytes
+and FLOPs) as a function of its inputs' shapes, which the kernel table's
+bound and the roofline's counter both read.
 """
 
 from __future__ import annotations
@@ -30,9 +42,11 @@ from pathlib import Path
 from typing import Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked
+from repro_torch.roofline.opcount import launch as counted_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_ssd.cu"
 
@@ -118,6 +132,34 @@ def _launch(x, dt, A, Bm, Cm, D, state0,
     return y, sT
 
 
+def work(x, dt, A, Bm, Cm, D, state0) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one call: each input and output byte once;
+    5 N P operations per token per head (the recurrence's own count:
+    S <- a S + B (dt x), y = C.S)."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    ins = (x, dt, A, Bm, Cm, D, state0)
+    nbytes = (sum(t.numel() * t.element_size() for t in ins)
+              + x.numel() * x.element_size() + state0.numel() * 4)
+    return nbytes, 5 * N * P * B * T * H
+
+
+@torch.library.custom_op("repro_torch::mamba2_ssd", mutates_args=())
+def _op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, D: torch.Tensor,
+        state0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(x, dt, A, Bm, Cm, D, state0)
+
+
+@_op.register_fake
+def _(x, dt, A, Bm, Cm, D, state0):
+    return torch.empty_like(x), torch.empty_like(state0)
+
+
+OP = torch.ops.repro_torch.mamba2_ssd
+OP_WORK = work
+
+
 def mamba2_ssd(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -132,9 +174,12 @@ def mamba2_ssd(
     _check(x, dt, A, Bm, Cm, D, state0)
     if x.device.type == "cpu":
         return mamba2_ssd_chunked(x, dt, A, Bm, Cm, D, state0, chunk=CHUNK)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, dt, A, Bm, Cm, D, state0)
+    if isinstance(x, FakeTensor) or x.device.type == "meta":
+        return OP(x, dt, A, Bm, Cm, D, state0)
+    # a real CUDA tensor skips the op's dispatch (its host time; PERF.md)
+    return counted_launch(OP, _launch, x, dt, A, Bm, Cm, D, state0)
 
 
 mamba2_ssd.launches = 0

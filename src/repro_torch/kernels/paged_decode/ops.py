@@ -23,6 +23,19 @@ batch-0 and the open-loop runs share rows in different batches).
 (one per call on a CUDA tensor); ``paged_decode_attention.merge_launches``
 counts launches of the merge kernel that follows it when the block table
 holds more than one range.
+
+A real CUDA tensor launches the kernel directly, through
+``repro_torch.roofline.opcount.launch``, which counts the call as the op
+:data:`OP` in an active counter; a ``meta`` or fake tensor goes through
+:data:`OP`, ``repro_torch::paged_decode``, a ``torch.library`` custom op
+whose real implementation is the same launch and whose fake implementation
+gives an empty output of the right shape and launches nothing, so a traced
+step (``repro_torch.launch.dryrun``) passes through the wrapper. The op's
+dispatch costs the card's host 19-39 µs a call, so real tensors skip it
+(``benchmarks/op_dispatch.py``). :func:`work` is the kernel's work (bytes
+and FLOPs) for rows of given lengths, which the kernel table's bound and the
+roofline's counter (``repro_torch.roofline.opcount``, through
+:func:`op_work`) both read.
 """
 
 from __future__ import annotations
@@ -34,9 +47,11 @@ from pathlib import Path
 from typing import List, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_decode.ref import paged_decode_ref
+from repro_torch.roofline.opcount import launch as counted_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode.cu"
 
@@ -167,6 +182,48 @@ def _launch(q, k_pages, v_pages, block_tables, lens,
     return out
 
 
+def work(q, lens, page: int, KV: int, hd: int) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one call over rows of ``lens`` tokens: each needed
+    K/V token, q, the output, lens and the needed block-table entries once;
+    4 H hd FLOPs per token."""
+    el = q.element_size()
+    B, H, _ = q.shape
+    tok = sum(lens)
+    nbytes = (tok * KV * hd * 2 * el + 2 * q.numel() * el + 4 * B
+              + 4 * sum(-(-n // page) for n in lens))
+    return nbytes, 4 * H * hd * tok
+
+
+def op_work(q, k_pages, v_pages, block_tables, lens) -> Tuple[int, int]:
+    """:func:`work` of the op's inputs: the rows' lengths read from ``lens``,
+    or, for a ``meta`` or fake ``lens`` (no values), every row at its block
+    table's capacity."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    _, page, KV, hd = k_pages.shape
+    cap = block_tables.shape[1] * page
+    if is_fake(lens) or lens.device.type == "meta":
+        n = [cap] * q.shape[0]
+    else:
+        n = [min(int(x), cap) for x in lens.tolist()]
+    return work(q, n, page, KV, hd)
+
+
+@torch.library.custom_op("repro_torch::paged_decode", mutates_args=())
+def _op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        block_tables: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    return _launch(q, k_pages, v_pages, block_tables, lens)
+
+
+@_op.register_fake
+def _(q, k_pages, v_pages, block_tables, lens):
+    return torch.empty_like(q)
+
+
+OP = torch.ops.repro_torch.paged_decode
+OP_WORK = op_work
+
+
 def paged_decode_attention(
     q: torch.Tensor,  # [B, H, hd]
     k_pages: torch.Tensor,  # [P, page, KV, hd]
@@ -179,9 +236,12 @@ def paged_decode_attention(
     _check(q, k_pages, v_pages, block_tables, lens)
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, block_tables, lens)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k_pages, v_pages, block_tables, lens)
+    if isinstance(q, FakeTensor) or q.device.type == "meta":
+        return OP(q, k_pages, v_pages, block_tables, lens)
+    # a real CUDA tensor skips the op's dispatch (its host time; PERF.md)
+    return counted_launch(OP, _launch, q, k_pages, v_pages, block_tables, lens)
 
 
 paged_decode_attention.launches = 0

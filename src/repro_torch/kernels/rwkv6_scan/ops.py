@@ -18,6 +18,18 @@ on CUDA tensors); ``rwkv6_scan.stage_launches`` counts the stages launched
 (three per call, one when T = 0: only the state pass runs).
 :func:`rwkv6_decode_step` is the plain single-token recurrence
 (the reference's ``ops.rwkv6_decode_step``; no TPU kernel behind it).
+
+A real CUDA tensor launches the kernel directly, through
+``repro_torch.roofline.opcount.launch``, which counts the call as the op
+:data:`OP` in an active counter; a ``meta`` or fake tensor goes through
+:data:`OP`, ``repro_torch::rwkv6_scan``, a ``torch.library`` custom op whose
+real implementation is the same launch and whose fake implementation gives
+an empty output of the right shape and launches nothing, so a traced step
+(``repro_torch.launch.dryrun``) passes through the wrapper. The op's
+dispatch costs the card's host 19-39 µs a call, so real tensors skip it
+(``benchmarks/op_dispatch.py``). :func:`work` is the kernel's work (bytes
+and FLOPs) as a function of its inputs' shapes, which the kernel table's
+bound and the roofline's counter both read.
 """
 
 from __future__ import annotations
@@ -28,9 +40,11 @@ from pathlib import Path
 from typing import Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan.ref import STATE_CHUNK, rwkv6_chunked
+from repro_torch.roofline.opcount import launch as counted_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
 
@@ -108,6 +122,32 @@ def _launch(r, k, v, w, u, state0) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, sT
 
 
+def work(r, k, v, w, u, state0) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one call: each input and output byte once;
+    4 N^2 operations per token per head (the recurrence's own count: y =
+    r.(S + u k v^T) and S <- w S + k v^T)."""
+    B, T, H, N = r.shape
+    ins = (r, k, v, w, u, state0)
+    nbytes = (sum(t.numel() * t.element_size() for t in ins)
+              + r.numel() * r.element_size() + state0.numel() * 4)
+    return nbytes, 4 * N * N * B * T * H
+
+
+@torch.library.custom_op("repro_torch::rwkv6_scan", mutates_args=())
+def _op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor, state0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch(r, k, v, w, u, state0)
+
+
+@_op.register_fake
+def _(r, k, v, w, u, state0):
+    return torch.empty_like(r), torch.empty_like(state0)
+
+
+OP = torch.ops.repro_torch.rwkv6_scan
+OP_WORK = work
+
+
 def rwkv6_scan(
     r: torch.Tensor,
     k: torch.Tensor,
@@ -121,9 +161,12 @@ def rwkv6_scan(
     _check(r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return rwkv6_chunked(r, k, v, w, u, state0, chunk=CHUNK)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {r.device}")
-    return _launch(r, k, v, w, u, state0)
+    if isinstance(r, FakeTensor) or r.device.type == "meta":
+        return OP(r, k, v, w, u, state0)
+    # a real CUDA tensor skips the op's dispatch (its host time; PERF.md)
+    return counted_launch(OP, _launch, r, k, v, w, u, state0)
 
 
 rwkv6_scan.launches = 0

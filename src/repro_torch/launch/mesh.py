@@ -8,6 +8,12 @@
 * :func:`make_local_mesh` / :func:`make_mesh` — a ``DeviceMesh`` over that
   world, for multi-device training.  Functions, not
   module constants: importing this module touches no device or group.
+* :func:`make_production_mesh` — the dry run's 16 x 16 (``data``,
+  ``model``) or 2 x 16 x 16 (``pod``, ``data``, ``model``) mesh over a fake
+  world of 256 or 512 ranks (the ``fake`` backend: no communication, this
+  process rank 0), the reference's mesh shapes, so that every per-chip
+  count can be held to the reference's.  On H100 hosts of 8 NVLink-joined
+  cards, a 16-wide model axis spans two NVLink domains.
 * :func:`shard_devices` — the devices the shards of a tensor-parallel
   engine sit on (the reference's engine builds a ``(1, tp)`` mesh over the
   first ``tp`` devices).
@@ -15,6 +21,7 @@
 
 from __future__ import annotations
 
+import math
 import os
 from datetime import timedelta
 from typing import List, Optional, Sequence, Tuple, Union
@@ -89,6 +96,31 @@ def make_local_mesh(model: Optional[int] = None) -> DeviceMesh:
     if n % model != 0:
         raise ValueError(f"model axis {model} does not divide the {n} available device(s)")
     return make_mesh(MeshConfig(data=n // model, model=model))
+
+
+def start_fake_world(world: int) -> None:
+    """Make the default process group a ``fake`` one of ``world`` ranks,
+    this process rank 0 (a running fake group of another size is replaced;
+    a real group is never touched: ValueError)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise ValueError(f"a {dist.get_backend()} process group is running; destroy it "
+                             "before building the production mesh")
+        if dist.get_world_size() == world:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
+    """16×16 single-pod (256 ranks) or 2×16×16 multi-pod (512 ranks), over a
+    fake world (:func:`start_fake_world`) for tracing one rank's step."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    start_fake_world(math.prod(shape))
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def free_port() -> int:

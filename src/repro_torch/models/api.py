@@ -6,12 +6,16 @@ vlm families, :class:`~repro_torch.models.rwkv6.RWKV6LM` the ssm family,
 :class:`~repro_torch.models.encdec.EncDecLM` the audio (encoder-decoder)
 family.  :func:`param_count` and :func:`active_param_count` count a
 config's parameters from its shapes alone, as the reference counts its
-parameter tree.
+parameter tree.  :func:`cache_capacity`, :func:`decode_window` and each
+model's ``input_specs(shape)`` size the dry run's cells
+(:mod:`repro_torch.launch.cells`).
 """
 
 from __future__ import annotations
 
-from repro_torch.config import ArchConfig
+from typing import Dict, Tuple
+
+from repro_torch.config import ArchConfig, ShapeConfig
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
@@ -40,6 +44,35 @@ def get_model(cfg: ArchConfig, *, device=None):
     from repro_torch.models.transformer import DenseLM
 
     return DenseLM(cfg, device=device)
+
+
+def cache_capacity(model, shape: ShapeConfig) -> int:
+    """KV capacity for a decode shape (a sliding window caps it for the
+    hybrid family)."""
+    if hasattr(model, "cache_capacity"):
+        return model.cache_capacity(shape.seq_len)
+    return shape.seq_len
+
+
+def decode_window(model, shape: ShapeConfig) -> int:
+    cfg = model.cfg
+    if cfg.long_context_window and shape.is_long_context:
+        return cfg.long_context_window
+    return 0
+
+
+def token_specs(shape: ShapeConfig) -> Dict[str, Tuple]:
+    """{name: (shape, dtype name, logical axes)} of a cell's token inputs:
+    tokens, targets and loss mask [B, S] to train, tokens [B, S] to
+    prefill, one token per row [B] to decode."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": ((B, S), "int32", ("batch", None)),
+                "targets": ((B, S), "int32", ("batch", None)),
+                "loss_mask": ((B, S), "float32", ("batch", None))}
+    if shape.kind == "prefill":
+        return {"tokens": ((B, S), "int32", ("batch", None))}
+    return {"tokens": ((B,), "int32", ("batch",))}
 
 
 def _attn_count(cfg: ArchConfig) -> int:

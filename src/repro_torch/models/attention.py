@@ -31,7 +31,7 @@ import math
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed.sharding import current_context, mesh_sizes, shard, spec_placements
 from repro_torch.kernels.flash_prefill import flash_prefill
@@ -67,13 +67,13 @@ def chunked_attention(
     The last chunk may be ragged (the reference needs ``Sq % q_chunk == 0``
     because its lengths are padded to power-of-two buckets; the port's are
     not).  On DTensors each rank attends over its own block
-    (:func:`_chunked_attention_blocks`, where the reference's layout
+    (:func:`_attention_blocks`, where the reference's layout
     constraints on k, v, the scores and the output sit): below that branch
     every tensor is plain.
     """
     if isinstance(q, DTensor):
-        return _chunked_attention_blocks(q, k, v, causal=causal, window=window,
-                                         q_chunk=q_chunk, q_offset=q_offset)
+        return _attention_blocks(chunked_attention, q, k, v, causal=causal, window=window,
+                                 q_chunk=q_chunk, q_offset=q_offset)
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     q_per_kv = H // k.shape[2]
@@ -97,30 +97,67 @@ def chunked_attention(
     return torch.cat(outs, dim=1)
 
 
-def _chunked_attention_blocks(q: DTensor, k: DTensor, v: DTensor, **kw) -> DTensor:
-    """:func:`chunked_attention` on a mesh.  Attention is independent per
-    batch row and per head, so each rank attends over its own block as
-    local tensors: its batch rows, and under a heads rule its block of the
-    query heads against the KV heads they read (the KV heads gathered over
-    the model axis, their gradient a partial sum over it).  DTensor's own
-    einsum here merges the batch and head dims, sharded over two mesh
-    dims, which the sharding propagation of torch 2.11 refuses."""
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: DTensor
+    views a local gradient as if it were contiguous, and an einsum's is not."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _attention_blocks(attend, q: DTensor, k: DTensor, v: DTensor, **kw) -> DTensor:
+    """``attend`` (:func:`chunked_attention` or the flash prefill kernel's
+    wrapper) on a mesh.  Attention is independent per batch row and per
+    head, so each rank attends over its own block as local tensors: its
+    batch rows, and under a heads rule its block of the query heads against
+    the KV heads they read (the KV heads gathered over the model axis,
+    their gradient a partial sum over it).  DTensor's own einsum here merges
+    the batch and head dims, sharded over two mesh dims, which the sharding
+    propagation of torch 2.11 refuses."""
     mesh = q.device_mesh
     heads = _heads_sharded()
     q = shard(q, "batch", None, "heads" if heads else None, None)
     hdims = [i for i, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 2]
+    ql = q.to_local()
+    if hdims and k.shape[2] == q.shape[2]:
+        # K/V projected one per query head (``transformer.kv_follow_queries``):
+        # laid out as q, each rank holds the heads its queries read
+        kl, vl = (_ContiguousGrad.apply(shard(t, "batch", None, "heads", None).to_local())
+                  for t in (k, v))
+        o = attend(ql, kl, vl, **kw)
+        return DTensor.from_local(o, mesh, q.placements, run_check=False, shape=q.shape,
+                                  stride=torch.empty(q.shape, device="meta").stride())
     k, v = (shard(t, "batch", None, None, None) for t in (k, v))
     grad = [Partial() if i in hdims else p for i, p in enumerate(k.placements)]
-    ql = q.to_local()
     kl, vl = (t.to_local(grad_placements=grad) for t in (k, v))
-    H = q.shape[2]
-    kl, vl = (_repeat_kv(t, H // t.shape[2]) for t in (kl, vl))
     if hdims:  # this rank's block of heads (torch.chunk's blocks)
         d = hdims[0]
+        H, Hl = q.shape[2], ql.shape[2]
+        qpk = H // kl.shape[2]
         h0 = mesh.get_local_rank(d) * -(-H // mesh.size(d))
-        kl, vl = (t[:, :, h0:h0 + ql.shape[2]] for t in (kl, vl))
-    o = chunked_attention(ql, kl, vl, **kw)
-    return DTensor.from_local(o, mesh, q.placements, run_check=False)
+        if h0 % qpk == 0 and Hl % qpk == 0:  # whole groups: their own KV heads
+            kl, vl = (t[:, :, h0 // qpk:(h0 + Hl) // qpk] for t in (kl, vl))
+        else:
+            kl, vl = (_repeat_kv(t, qpk)[:, :, h0:h0 + Hl] for t in (kl, vl))
+    # torch.chunk's blocks leave the last ranks no head when the heads do not
+    # divide the axis (40 on 16: thirteen of 3, one of 1, two of none); such a
+    # rank's empty blocks stay in its graph (their sums are 0), so K/V get
+    # its zero term of their gradient
+    o = attend(ql, kl, vl, **kw) if ql.shape[2] else ql + kl.sum() + vl.sum()
+    # the global shape given: heads that do not divide the axis leave the
+    # ranks blocks of unequal size
+    return DTensor.from_local(o, mesh, q.placements, run_check=False, shape=q.shape,
+                              stride=torch.empty(q.shape, device="meta").stride())
+
+
+def _flash(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    return flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=causal, window=window)
 
 
 def prefill_attention(
@@ -134,12 +171,13 @@ def prefill_attention(
 ) -> torch.Tensor:
     """Prefill attention over the sequence itself.  ``impl="kernel"`` is the
     flash prefill kernel's wrapper (its plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors); ``impl="plain"`` is
-    :func:`chunked_attention`, for oracles that must not depend on the
-    kernel."""
+    CUDA kernel for CUDA tensors; on a mesh, on each rank's block);
+    ``impl="plain"`` is :func:`chunked_attention`, for oracles that must not
+    depend on the kernel."""
     if impl == "kernel":
-        return flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=causal, window=window)
+        if isinstance(q, DTensor):
+            return _attention_blocks(_flash, q, k, v, causal=causal, window=window)
+        return _flash(q, k, v, causal=causal, window=window)
     if impl == "plain":
         return chunked_attention(q, k, v, causal=causal, window=window)
     raise ValueError(f"unknown impl {impl!r}")
@@ -153,6 +191,8 @@ def decode_attention(
     *,
     window: int = 0,
 ) -> torch.Tensor:
+    if isinstance(q, DTensor):
+        return _decode_blocks(q, k_cache, v_cache, lens, window)
     B, S, KV, hd = k_cache.shape
     q_per_kv = q.shape[1] // KV
     scale = 1.0 / math.sqrt(hd)
@@ -168,18 +208,86 @@ def decode_attention(
     return torch.einsum("bhs,bshd->bhd", p.to(vr.dtype), vr)
 
 
+def _decode_blocks(q: DTensor, k_cache, v_cache, lens, window: int) -> DTensor:
+    """:func:`decode_attention` on a mesh (inference only), each rank over its
+    own block: its batch rows and, under a heads rule, its block of query
+    heads against the KV heads they read, from a cache laid out by batch
+    and, where they divide the model axis, by KV heads (a cache sharded
+    along its sequence takes :func:`decode_attention_blocksharded`)."""
+    ctx = current_context()
+    mesh = q.device_mesh
+    heads = _heads_sharded() and q.shape[1] % mesh_sizes(mesh).get("model", 1) == 0
+    q = shard(q, "batch", "heads" if heads else None, None)
+    H = q.shape[1]
+
+    def block(t, *logical):
+        return (t if isinstance(t, DTensor) else ctx.distribute(t, logical))
+
+    k, v = (block(t, "batch", None, None, None) for t in (k_cache, v_cache))
+    if any(p.is_shard(1) for p in k.placements):
+        raise ValueError("decode_attention takes a cache whose sequence is whole on each rank")
+    ql = q.to_local()
+    kv_split = any(p.is_shard(2) for p in k.placements)
+    if not kv_split:
+        k, v = (shard(t, "batch", None, None, None) for t in (k, v))
+    kl, vl = k.to_local(), v.to_local()
+    if heads and not kv_split and ql.shape[1] < H:  # this rank's block of query heads
+        d = [i for i, p in enumerate(q.placements) if p.is_shard(1)][0]
+        Hl, qpk = ql.shape[1], H // kl.shape[2]
+        h0 = mesh.get_local_rank(d) * -(-H // mesh.size(d))
+        if h0 % qpk == 0 and Hl % qpk == 0:
+            kl, vl = (t[:, :, h0 // qpk:(h0 + Hl) // qpk] for t in (kl, vl))
+        else:
+            kl, vl = (_repeat_kv(t, qpk)[:, :, h0:h0 + Hl] for t in (kl, vl))
+    ll = block(lens, "batch")
+    ll = shard(ll, "batch").to_local()
+    o = decode_attention(ql, kl, vl, ll, window=window)
+    return DTensor.from_local(o, mesh, q.placements, run_check=False, shape=q.shape,
+                              stride=torch.empty(q.shape, device="meta").stride())
+
+
 def write_kv(cache_k: torch.Tensor, cache_v: torch.Tensor, k_new: torch.Tensor,
              v_new: torch.Tensor, pos: torch.Tensor, rows=None) -> None:
     """cache [B, S, KV, hd]; new [B, KV, hd]; writes row b's new K/V at
     ``pos[b]`` (clipped to the cache) in place (the reference returns new
     caches; the port saves the copy), for the ``rows`` (indices) only when
     given."""
+    if isinstance(cache_k, DTensor):
+        return _write_kv_blocks(cache_k, cache_v, k_new, v_new, pos, rows)
     S = cache_k.shape[1]
     if rows is None:
         rows = torch.arange(cache_k.shape[0], device=cache_k.device)
     p = pos[rows].long().clamp(0, S - 1)
     cache_k[rows, p] = k_new[rows].to(cache_k.dtype)
     cache_v[rows, p] = v_new[rows].to(cache_v.dtype)
+
+
+def _write_kv_blocks(cache_k: DTensor, cache_v: DTensor, k_new, v_new, pos, rows) -> None:
+    """:func:`write_kv` on a mesh, into a cache whose batch and KV-head dims
+    may be sharded (not its sequence: that is
+    :func:`decode_attention_blocksharded`'s): each rank writes its own rows'
+    K/V heads into its block, the new K/V laid out as the cache and the
+    positions as its batch."""
+    if rows is not None:
+        raise NotImplementedError("a row subset is not written on a mesh")
+    if any(p.is_partial() for p in cache_k.placements + cache_v.placements):
+        # each rank's term would take the new value (sharding.reduce_partials)
+        raise ValueError("write_kv takes a cache that holds no partial sum")
+    mesh = cache_k.device_mesh
+    if any(p.is_shard(1) for p in cache_k.placements):
+        raise ValueError("write_kv takes a cache whose sequence is whole on each rank")
+    new_pl = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2) else Replicate()
+              for p in cache_k.placements]
+    pos_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in cache_k.placements]
+    ctx = current_context()
+
+    def lay(x, pl):
+        if isinstance(x, DTensor):
+            return x if list(x.placements) == pl else x.redistribute(mesh, pl)
+        return ctx.distribute_placements(x, pl)
+
+    write_kv(cache_k.to_local(), cache_v.to_local(), lay(k_new, new_pl).to_local(),
+             lay(v_new, new_pl).to_local(), lay(pos, pos_pl).to_local())
 
 
 # ---------------------------------------------------------------------------
@@ -244,13 +352,15 @@ def decode_attention_blocksharded(
     B, S, KV, hd = k_cache.shape
     local_S = S // mesh_sizes(mesh)["model"]
     offset = mesh.get_local_rank("model") * local_S
-    # write the new token into the owning rank's block
+    # write the new token into the owning rank's block (a row this rank does
+    # not own rewrites one of its slots with the value it holds: no mask
+    # selects rows, so the write's shapes do not depend on the data)
     local_pos = ln.long() - offset
-    owned = (local_pos >= 0) & (local_pos < local_S)
-    rows = torch.arange(kc.shape[0], device=kc.device)[owned]
-    pos = local_pos[owned]
-    kc[rows, pos] = kn[owned].to(kc.dtype)
-    vc[rows, pos] = vn[owned].to(vc.dtype)
+    owned = ((local_pos >= 0) & (local_pos < local_S))[:, None, None]
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    pos = local_pos.clamp(0, local_S - 1)
+    kc[rows, pos] = torch.where(owned, kn.to(kc.dtype), kc[rows, pos])
+    vc[rows, pos] = torch.where(owned, vn.to(vc.dtype), vc[rows, pos])
     # partial attention over the local block
     new_lens = ln.long() + 1
     kv_pos = offset + torch.arange(local_S, device=kc.device)

@@ -36,6 +36,7 @@ stacked leaf as it stacks the leaf).
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Any, Dict, List, Mapping, Tuple
 
@@ -225,8 +226,20 @@ def reference_leaves(names, cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], Tupl
     stacked leading shape — ``()`` for an unstacked leaf, ``(L,)`` for one
     stacked over L layers, ``(G, per_group)`` for zamba2's Mamba groups —
     and the port's parameter ``names`` it holds, in stacking order)."""
-    names = list(names)
-    ids = {n: torch.tensor(i) for i, n in enumerate(names)}
+    return [(path, shape, list(group))
+            for path, shape, group in _reference_leaves(tuple(sorted(names)), cfg)]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_leaves(names: Tuple[str, ...], cfg: ArchConfig):
+    """:func:`reference_leaves` of a sorted tuple of names (cached: the
+    trainer asks once per step; a traced step runs under a fake tensor mode,
+    which the ids here must not enter)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        ids = {n: torch.tensor(i) for i, n in enumerate(names)}
+        ref = params_to_reference(ids, cfg)
     leaves = []
 
     def walk(tree, path):
@@ -235,10 +248,11 @@ def reference_leaves(names, cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], Tupl
                 walk(v, path + (k,))
             else:
                 v = np.asarray(v)
-                leaves.append((path + (k,), v.shape, [names[int(i)] for i in np.ravel(v)]))
+                leaves.append((path + (k,), v.shape,
+                               tuple(names[int(i)] for i in np.ravel(v))))
 
-    walk(params_to_reference(ids, cfg), ())
-    return leaves
+    walk(ref, ())
+    return tuple(leaves)
 
 
 def reference_stacks(names, cfg: ArchConfig) -> List[List[str]]:

@@ -26,10 +26,11 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.config import ArchConfig
+from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import reduce_partials, shard
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.api import token_specs
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
@@ -41,6 +42,8 @@ from repro_torch.models.layers import (
     mlp_params,
     param,
     rms_norm,
+    rows_matmul,
+    serving,
     softmax_xent,
     swiglu_apply,
     swiglu_logical_axes,
@@ -86,7 +89,7 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., d] through ``w`` [d, H, hd] -> [..., H, hd] (no RoPE: cross
     attention)."""
     d, H, hd = w.shape
-    return (x @ w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
+    return rows_matmul(x, w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
 
 
 class EncDecLM(nn.Module):
@@ -201,6 +204,21 @@ class EncDecLM(nn.Module):
                                batch["loss_mask"].to(dev))
         return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        """{name: (shape, dtype name, logical axes)} of a dry-run cell's
+        inputs: the token inputs and the stubbed audio frontend's
+        ``frames`` [B, F, d] (F cut to S to train) for train and prefill."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        F = cfg.encdec.encoder_memory_len
+        specs = token_specs(shape)
+        if shape.kind in ("train", "prefill"):
+            n = min(F, S) if shape.kind == "train" else F
+            specs["frames"] = ((B, n, cfg.d_model), cfg.activation_dtype, ("batch", None, None))
+            if shape.kind == "train":  # the reference's key order
+                specs = {"frames": specs.pop("frames"), **specs}
+        return specs
+
     # -- cache -------------------------------------------------------------------
     def cache_shape(self, batch: int, capacity: int):
         """{name: (shape, dtype name, logical axes)}, as the reference's."""
@@ -223,7 +241,7 @@ class EncDecLM(nn.Module):
         return zeros_cache(self.cache_shape(batch, capacity), self.device)
 
     # -- serve -------------------------------------------------------------------
-    @torch.inference_mode()
+    @serving
     def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
                 frames: torch.Tensor, impl: str = "kernel") -> Tuple[torch.Tensor, Cache]:
         """tokens [B, S] and ``frames`` [B, F, d] -> (next-token logits
@@ -261,7 +279,7 @@ class EncDecLM(nn.Module):
             "enc_lens": torch.full((B,), memory.shape[1], dtype=torch.int32, device=dev),
         }
 
-    @torch.inference_mode()
+    @serving
     def decode(self, tokens: torch.Tensor, cache: Cache,
                active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
         """tokens [B] -> (logits [B, V] f32, cache).  Writes each row's new
@@ -270,6 +288,7 @@ class EncDecLM(nn.Module):
         are left as they were); cross-attention reads ``enc_lens`` memory
         positions."""
         cfg = self.cfg
+        cache = reduce_partials(cache)
         lens = cache["lens"]
         rows = None if active is None else active.nonzero()[:, 0]
         x = shard(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),

@@ -16,6 +16,7 @@ taken in float32 and cast back, as the reference does.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import Callable, Mapping, Optional, Sequence, Tuple
@@ -27,7 +28,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import torch_dtype
-from repro_torch.distributed.sharding import from_local, local, shard
+from repro_torch.distributed.sharding import current_context, from_local, local, shard
 
 Params = Mapping[str, torch.Tensor]
 
@@ -46,6 +47,21 @@ def param(shape: Sequence[int], dtype: torch.dtype, device) -> nn.Parameter:
     (:mod:`repro_torch.train.trainer`) makes parameters trainable."""
     return nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def serving(fn: Callable) -> Callable:
+    """Run a serve entry point (``prefill``, ``decode``) under
+    ``torch.inference_mode()``, or under ``torch.no_grad()`` inside an
+    active sharding context on a mesh: DTensor's views refuse inference
+    tensors.  Either way nothing records gradients."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        ctx = current_context()
+        with (torch.no_grad() if ctx is not None and ctx.distributed
+              else torch.inference_mode()):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def zeros_cache(shapes, device) -> dict:
@@ -183,12 +199,45 @@ def rows_matmul(x: torch.Tensor, w: torch.Tensor, min_rows: int = 0) -> torch.Te
     """``x @ w`` for x [..., K] and w [K, N], on the card with the rows
     (every axis but the last) padded with zeros to ``min_rows`` and cut
     back: one GEMM of at least ``min_rows`` rows."""
+    if isinstance(x, DTensor) and any(p.is_shard(d) for p in x.placements
+                                      for d in range(1, x.ndim - 1)):
+        # a sequence-parallel input: gathered along its sequence before the
+        # column-parallel product (Megatron's all-gather); DTensor cannot
+        # flatten two sharded dims into the product's rows
+        x = shard(x, "batch", *[None] * (x.ndim - 1))
     rows = x.numel() // x.shape[-1]
     if not x.is_cuda or rows >= min_rows:
         return x @ w
     flat = x.reshape(rows, x.shape[-1])
     out = torch.cat([flat, flat.new_zeros(min_rows - rows, flat.shape[1])]) @ w
     return out[:rows].reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _WholeSeqGrad(torch.autograd.Function):
+    """The identity, whose backward gathers a gradient sharded along a
+    middle (sequence) dim: Megatron's sequence parallelism all-gathers the
+    gradient ahead of a row-parallel product's backward, whose matmul flattens
+    the rows, and DTensor (torch 2.11) cannot flatten two sharded dims."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and any(p.is_shard() and 0 < p.dim < g.ndim - 1
+                                          for p in g.placements):
+            g = g.redistribute(g.device_mesh, [
+                Replicate() if p.is_shard() and 0 < p.dim < g.ndim - 1 else p
+                for p in g.placements])
+        return g
+
+
+def rows_out(y: torch.Tensor) -> torch.Tensor:
+    """``y``, the output of a row-parallel product that the residual stream
+    then shards along its sequence (see :class:`_WholeSeqGrad`); the
+    identity for a plain tensor."""
+    return _WholeSeqGrad.apply(y) if isinstance(y, DTensor) else y
 
 
 def swiglu_hidden(p: Params, x: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
@@ -204,8 +253,11 @@ def swiglu_apply(p: Params, x: torch.Tensor, min_rows: int = 0) -> torch.Tensor:
     """x: [..., d_model] -> [..., d_model]; d_ff sharded over the model
     axis on a mesh."""
     h = swiglu_hidden(p, x, min_rows)
-    h = shard(h, *((None,) * (h.ndim - 1)), "d_ff")
-    return h @ p["w_down"]
+    # rows stay on their batch block (XLA slices a replicated operand to
+    # the output's batch sharding; DTensor would compute every row on
+    # every data rank)
+    h = shard(h, "batch", *((None,) * (h.ndim - 2)), "d_ff")
+    return rows_out(h @ p["w_down"])
 
 
 # ---------------------------------------------------------------------------

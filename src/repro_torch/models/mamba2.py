@@ -21,21 +21,32 @@ from torch import nn
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked
-from repro_torch.distributed.sharding import shard
-from repro_torch.models.layers import dense_init, param, rms_norm
+from repro_torch.distributed.sharding import on_blocks, shard
+from repro_torch.models.layers import dense_init, param, rms_norm, rows_out
 
 State = Dict[str, torch.Tensor]
 IMPLS = ("kernel", "plain")
 
 
+_SEQ = ("batch", None, "heads", None)
+_STATE = ("batch", "heads", None, None)
+_IN_AXES = (_SEQ, ("batch", None, "heads"), ("heads",), ("batch", None, None),
+            ("batch", None, None), ("heads",), _STATE)
+
+
+def _plain_ssd(*args):
+    return mamba2_ssd_chunked(*args, chunk=ssd_ops.CHUNK)
+
+
 def ssd(impl: str):
     """The chunked SSD scan for ``impl``: the wrapper (kernel on the card,
-    plain version on the CPU) or the plain version."""
-    if impl == "kernel":
-        return ssd_ops.mamba2_ssd
-    if impl == "plain":
-        return lambda *a: mamba2_ssd_chunked(*a, chunk=ssd_ops.CHUNK)
-    raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+    plain version on the CPU) or the plain version; on a mesh, on each
+    rank's block (the recurrence is independent per batch row and head)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+    fn = ssd_ops.mamba2_ssd if impl == "kernel" else _plain_ssd
+    return lambda x, dt, A, Bm, Cm, D, state0: on_blocks(
+        fn, (x, dt, A, Bm, Cm, D, state0), _IN_AXES, (_SEQ, _STATE))
 
 
 class Mamba2Block(nn.Module):
@@ -135,7 +146,7 @@ class Mamba2Block(nn.Module):
     def _gate_out(self, x, y, z):
         y = rms_norm(y, torch.ones(self.P, device=y.device), self.cfg.rms_eps) * self.norm
         y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-        return y.reshape(*y.shape[:-2], -1) @ self.wo.reshape(-1, self.wo.shape[-1])
+        return rows_out(y.reshape(*y.shape[:-2], -1) @ self.wo.reshape(-1, self.wo.shape[-1]))
 
     # -- forward -----------------------------------------------------------------
     def apply_seq(self, x: torch.Tensor, state: State, impl: str = "kernel"
@@ -144,7 +155,10 @@ class Mamba2Block(nn.Module):
         B, T, _ = x.shape
         h = rms_norm(x, self.ln, self.cfg.rms_eps)
         z, xin, Bm, Cm, dt = self._project(h)
-        xin = shard(xin, "batch", None, "heads", None)
+        # pinned as the scan's output is: a partial gate left to DTensor may
+        # land on the sequence dim, which the output projection's matmul
+        # then merges with the batch dim into a layout it cannot propagate
+        xin, z = (shard(t, "batch", None, "heads", None) for t in (xin, z))
         xbc = torch.cat([xin.reshape(B, T, self.d_inner), Bm, Cm], dim=-1)
         conv_out, new_tail = self._causal_conv_seq(xbc, state["conv"])
         di, N = self.d_inner, self.N

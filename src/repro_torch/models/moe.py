@@ -162,8 +162,11 @@ def moe_apply_scatter(p, x: torch.Tensor, moe: MoEConfig) -> Tuple[torch.Tensor,
     eid, pos, keep = _slot_positions(idx, moe, C)
     rows = torch.arange(xl.shape[0], device=x.device)[:, None].expand_as(eid)
     tok = (torch.arange(T * k, device=x.device) // k)[None, :].expand_as(eid)
-    buf = xl.new_zeros((xl.shape[0], moe.num_experts, C, d))
-    buf[rows[keep], eid[keep], pos[keep]] = xl[rows[keep], tok[keep]]
+    # a dropped token writes to a spare slot C that the experts never see:
+    # no mask selects the tokens, so no shape depends on the routing
+    buf = xl.new_zeros((xl.shape[0], moe.num_experts, C + 1, d))
+    buf[rows, eid, torch.where(keep, pos, C)] = xl[rows, tok]
+    buf = buf[:, :, :C].contiguous()
     out = local(_expert_ffn(p, from_local(buf, "batch", None, None, None)),
                 "batch", None, None, None)
     y_slots = out[rows, eid, torch.where(keep, pos, 0)] * keep[..., None].to(x.dtype)

@@ -25,12 +25,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.config import ArchConfig
+from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import on_blocks, reduce_partials, shard
 from repro_torch.kernels.rwkv6_scan import ops as scan_ops
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked
+from repro_torch.models.api import token_specs
 from repro_torch.models.layers import (
     commit_rows,
     dense_init,
@@ -42,6 +44,7 @@ from repro_torch.models.layers import (
     maybe_remat,
     param,
     rms_norm,
+    serving,
     softmax_xent,
     zeros_cache,
 )
@@ -53,14 +56,23 @@ DECAY_RANK = 64
 IMPLS = ("kernel", "plain")
 
 
+_SEQ = ("batch", None, "heads", None)
+_STATE = ("batch", "heads", None, None)
+
+
+def _plain_scan(*args):
+    return rwkv6_chunked(*args, chunk=scan_ops.CHUNK)
+
+
 def scan(impl: str):
     """The chunked scan for ``impl``: the wrapper (kernel on the card, plain
-    version on the CPU) or the plain version."""
-    if impl == "kernel":
-        return scan_ops.rwkv6_scan
-    if impl == "plain":
-        return lambda *a: rwkv6_chunked(*a, chunk=scan_ops.CHUNK)
-    raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+    version on the CPU) or the plain version; on a mesh, on each rank's
+    block (the recurrence is independent per batch row and head)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; have {IMPLS}")
+    fn = scan_ops.rwkv6_scan if impl == "kernel" else _plain_scan
+    return lambda r, k, v, w, u, state0: on_blocks(
+        fn, (r, k, v, w, u, state0), (_SEQ,) * 4 + (("heads", None), _STATE), (_SEQ, _STATE))
 
 
 class RWKV6Block(nn.Module):
@@ -175,6 +187,11 @@ class RWKV6LM(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        """{name: (shape, dtype name, logical axes)} of a dry-run cell's
+        inputs (the token inputs)."""
+        return token_specs(shape)
+
     # -- caches --------------------------------------------------------------
     def cache_shape(self, batch: int, capacity: int):
         """{name: (shape, dtype name, logical axes)}, as the reference's."""
@@ -195,6 +212,11 @@ class RWKV6LM(nn.Module):
         """Data-dependent lerp producing the 5 mixed inputs (w, k, v, r, g)."""
         xxx = x + sx * p.mu_x.to(x.dtype)
         r1 = torch.tanh(xxx.float() @ p.maa_w1)
+        # whole on each rank before the split into the 5 mixes (on a mesh the
+        # product may come sharded along its 5 x rank columns)
+        if isinstance(r1, DTensor) and any(p.is_shard(r1.ndim - 1) for p in r1.placements):
+            r1 = r1.redistribute(r1.device_mesh, [Replicate() if p.is_shard(r1.ndim - 1) else p
+                                                  for p in r1.placements])
         r1 = r1.reshape(*r1.shape[:-1], 5, self.maa_rank)
         deltas = torch.einsum("...fr,frd->...fd", r1, p.maa_w2)  # [..., 5, d]
         return [x + sx * (p.mu_5[i] + deltas[..., i, :]).to(x.dtype) for i in range(5)]
@@ -233,7 +255,10 @@ class RWKV6LM(nn.Module):
         r, k, v = self._heads(xr, p.wr), self._heads(xk, p.wk), self._heads(xv, p.wv)
         g = F.silu(self._heads(xg, p.wg).float()).to(x.dtype)
         w = self._decay(p, xw).reshape(x.shape[0], self.H, self.N)
-        y, state = scan_ops.rwkv6_decode_step(r, k, v, w, p.u, state)
+        # per row and head: on each rank's block on a mesh
+        step = ("batch", "heads", None)
+        y, state = on_blocks(scan_ops.rwkv6_decode_step, (r, k, v, w, p.u, state),
+                             (step,) * 4 + (("heads", None), _STATE), (step, _STATE))
         y = group_norm_heads(y, p.ln_x_scale, p.ln_x_bias)
         return self._out(y * g, p.wo), state, x
 
@@ -299,7 +324,7 @@ class RWKV6LM(nn.Module):
         return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     # -- serve -------------------------------------------------------------------
-    @torch.inference_mode()
+    @serving
     def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
                 impl: str = "kernel") -> Tuple[torch.Tensor, Cache]:
         """tokens: [B, S] -> (next-token logits [B, V] f32, state).
@@ -310,7 +335,7 @@ class RWKV6LM(nn.Module):
                              self.unembed)
         return logits, state
 
-    @torch.inference_mode()
+    @serving
     def decode(self, tokens: torch.Tensor, cache: Cache,
                active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
         """tokens: [B] -> (logits [B, V] f32, cache).  Updates the state
@@ -319,6 +344,7 @@ class RWKV6LM(nn.Module):
         advances (all when None); the other rows are computed, and their
         state and ``lens`` are left as they were."""
         cfg = self.cfg
+        cache = reduce_partials(cache)
         x = rms_norm(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),
                      self.ln0, cfg.rms_eps)
         x = shard(x, "batch", None)

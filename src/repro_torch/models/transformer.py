@@ -37,12 +37,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.config import ArchConfig
+from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.distributed.sharding import current_context, model_axis_size, shard, tp_allgather
+from repro_torch.distributed.sharding import (current_context, model_axis_size, reduce_partials,
+                                              shard, tp_allgather)
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.api import token_specs
 from repro_torch.models.layers import (
     AUX_LOSS_WEIGHT,
     PREFILL_MIN_ROWS,
@@ -58,6 +60,8 @@ from repro_torch.models.layers import (
     param,
     rms_norm,
     rows_matmul,
+    rows_out,
+    serving,
     softmax_xent,
     swiglu_apply,
     swiglu_hidden,
@@ -72,17 +76,61 @@ Cache = Dict[str, torch.Tensor]
 Shards = List[Dict[str, torch.Tensor]]
 
 
+def kv_follow_queries(cfg: ArchConfig) -> bool:
+    """True on a mesh whose model axis shards the query heads but not the
+    KV heads.  There each rank projects only the KV heads its own query
+    heads read, laid out as the queries (one K/V head per query head), as
+    GSPMD slices the reference's replicated K/V weights to the heads a
+    partition reads; DTensor would have every rank project every KV head."""
+    ctx = current_context()
+    m = model_axis_size()
+    return (ctx is not None and ctx.distributed and m > 1 and cfg.num_kv_heads < cfg.num_heads
+            and ctx.rules.get("heads") is not None and ctx.rules.get("kv_heads") is None
+            and cfg.num_heads % m == 0)
+
+
+def _per_query_head(w: DTensor, H: int) -> DTensor:
+    """A K/V weight [d, KV, hd], replicated over the model axis, as [d, H,
+    hd] with one column block per query head, sharded over the model axis
+    like the query heads: each rank builds its own block from its copy (no
+    communication).  Its gradient comes back reduced over the other mesh
+    dims and a partial sum over the model axis (each rank's block holds
+    only the gradient of the KV heads its query heads read)."""
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    m = mesh.size(names.index("model"))
+    wl = w.to_local(grad_placements=[Partial() if n == "model" else Replicate()
+                                     for n in names])
+    h0 = mesh.get_local_rank("model") * (H // m)
+    block = wl.repeat_interleave(H // w.shape[1], dim=1)[:, h0:h0 + H // m]
+    return DTensor.from_local(block, mesh, [Shard(1) if n == "model" else Replicate()
+                                            for n in names], run_check=False)
+
+
+def kv_heads(t: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """K or V projected one per query head (``kv_follow``) back to one per
+    KV head, whole over the model axis (a gather of the heads)."""
+    t = shard(t, "batch", *[None] * (t.ndim - 1))
+    return t[:, :, ::cfg.q_per_kv]
+
+
 def project_qkv(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
-                min_rows: int = 0):
+                min_rows: int = 0, kv_follow: bool = False):
     """h: [B, S, d]; positions: [B, S] or [S].  Returns roped q [B,S,H,hd],
     k and v [B,S,KV,hd], where H and KV are the head counts of ``p``'s
     columns: a tensor-parallel shard passes its slice (H/tp, KV/tp).  A
-    prefill passes ``min_rows`` (``layers.rows_matmul``)."""
+    prefill passes ``min_rows`` (``layers.rows_matmul``).  With
+    ``kv_follow`` (:func:`kv_follow_queries`) k and v come one per query
+    head, [B,S,H,hd], laid out as q."""
     B, S, d = h.shape
     H, KV, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
+    wk, wv = p["wk"], p["wv"]
+    if kv_follow:
+        wk, wv = _per_query_head(wk, H), _per_query_head(wv, H)
+        KV = H
     q = rows_matmul(h, p["wq"].reshape(d, -1), min_rows).view(B, S, H, hd)
-    k = rows_matmul(h, p["wk"].reshape(d, -1), min_rows).view(B, S, KV, hd)
-    v = rows_matmul(h, p["wv"].reshape(d, -1), min_rows).view(B, S, KV, hd)
+    k = rows_matmul(h, wk.reshape(d, -1), min_rows).view(B, S, KV, hd)
+    v = rows_matmul(h, wv.reshape(d, -1), min_rows).view(B, S, KV, hd)
     q, k, v = tag_sp_gathered(q, k, v)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
@@ -93,20 +141,28 @@ def project_qkv(p, cfg: ArchConfig, h: torch.Tensor, positions: torch.Tensor,
 
 
 def out_proj(p, o: torch.Tensor) -> torch.Tensor:
-    """o: [..., H, hd] -> [..., d] through ``wo [H, hd, d]``."""
+    """o: [..., H, hd] -> [..., d] through ``wo [H, hd, d]``.  On a mesh,
+    heads that do not divide the model axis come in blocks of unequal size,
+    which DTensor cannot merge with hd: they are gathered first."""
     H, hd, d = p["wo"].shape
-    return o.reshape(*o.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d)
+    if isinstance(o, DTensor) and any(
+            pl.is_shard(o.ndim - 2) and o.shape[-2] % o.device_mesh.size(i)
+            for i, pl in enumerate(o.placements)):
+        o = shard(o, "batch", *[None] * (o.ndim - 1))
+    return rows_out(o.reshape(*o.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d))
 
 
 def attn_full(p, cfg: ArchConfig, x: torch.Tensor, *, causal: bool = True,
-              window: int = 0, impl: str = "kernel", min_rows: int = 0
+              window: int = 0, impl: str = "kernel", min_rows: int = 0,
+              kv_follow: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence attention (prefill); x: [B, S, d] normalised input.
     Returns (out [B, S, d], roped k [B, S, KV, hd], v [B, S, KV, hd]).
     ``impl``: see :func:`repro_torch.models.attention.prefill_attention`;
-    ``min_rows``: see :func:`project_qkv`."""
+    ``min_rows``, ``kv_follow`` (k and v then one per query head): see
+    :func:`project_qkv`."""
     S = x.shape[1]
-    q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device), min_rows)
+    q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device), min_rows, kv_follow)
     if current_context() is not None and cfg.num_heads % model_axis_size() == 0:
         q = shard(q, "batch", None, "heads", None)
     o = attn_lib.prefill_attention(q, k, v, causal=causal, window=window, impl=impl)
@@ -248,13 +304,15 @@ class Block(nn.Module):
             init_mlp(self.mlp, g)
 
     def full(self, cfg: ArchConfig, x: torch.Tensor, impl: str = "kernel",
-             shards: Optional[Shards] = None):
+             shards: Optional[Shards] = None, kv_follow: bool = False):
         """Causal full-sequence layer; returns (x, roped k, v, the MoE's
-        load-balance loss), with ``shards`` the per-shard lists of k and v."""
+        load-balance loss), with ``shards`` the per-shard lists of k and v
+        (``kv_follow``: see :func:`project_qkv`)."""
         h = rms_norm(x, self.ln1, cfg.rms_eps)
         rows = PREFILL_MIN_ROWS
         if shards is None:
-            o, k, v = attn_full(self.attn, cfg, h, impl=impl, min_rows=rows)
+            o, k, v = attn_full(self.attn, cfg, h, impl=impl, min_rows=rows,
+                                kv_follow=kv_follow)
         else:
             o, k, v = attn_full_tp(self.attn, shards, cfg, h, impl=impl, min_rows=rows)
         x = shard(x + o, "batch", "seq", None)
@@ -366,9 +424,11 @@ class DenseLM(nn.Module):
         x = self._embed_prompt(batch["tokens"], batch.get("patch_embeds"))
         aux = torch.zeros((), dtype=torch.float32, device=dev)
 
+        follow = kv_follow_queries(cfg)  # k and v feed the attention only
+
         def run(layers, x, aux):
             for blk in layers:
-                x, _, _, a = blk.full(cfg, x, impl="plain")
+                x, _, _, a = blk.full(cfg, x, impl="plain", kv_follow=follow)
                 aux = aux + a
             return x, aux
 
@@ -382,6 +442,18 @@ class DenseLM(nn.Module):
                                batch["loss_mask"].to(dev))
         loss = xent + AUX_LOSS_WEIGHT * aux / max(cfg.num_layers, 1)
         return loss, {"xent": xent, "aux": aux}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        """{name: (shape, dtype name, logical axes)} of a dry-run cell's
+        inputs: the token inputs and, for a vlm's train and prefill cells,
+        its ``patch_embeds`` [B, P, d]."""
+        cfg = self.cfg
+        specs = token_specs(shape)
+        if (cfg.modality is not None and cfg.modality.num_embeds
+                and shape.kind in ("train", "prefill")):
+            specs["patch_embeds"] = ((shape.global_batch, cfg.modality.num_embeds, cfg.d_model),
+                                     cfg.activation_dtype, ("batch", None, None))
+        return specs
 
     # -- serve: cache --------------------------------------------------------
     def cache_shape(self, batch: int, capacity: int):
@@ -414,7 +486,7 @@ class DenseLM(nn.Module):
         return cache
 
     # -- serve: prefill ------------------------------------------------------
-    @torch.inference_mode()
+    @serving
     def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
                 true_lens: Optional[torch.Tensor] = None,
                 patch_embeds: Optional[torch.Tensor] = None,
@@ -438,9 +510,13 @@ class DenseLM(nn.Module):
         B, S = tokens.shape
         capacity = capacity or S
         x = self._embed_prompt(tokens, patch_embeds)
+        follow = shards is None and kv_follow_queries(self.cfg)
         ks, vs = [], []
         for i, blk in enumerate(self.layers):
-            x, k, v, _ = blk.full(self.cfg, x, impl, None if shards is None else shards[i])
+            x, k, v, _ = blk.full(self.cfg, x, impl, None if shards is None else shards[i],
+                                  kv_follow=follow)
+            if follow:  # the cache keeps every KV head
+                k, v = kv_heads(k, self.cfg), kv_heads(v, self.cfg)
             ks.append(k)
             vs.append(v)
         lens = self._row_lens(B, S, true_lens)
@@ -504,7 +580,7 @@ class DenseLM(nn.Module):
             vs.append(v)
         return self._logits_at(x, self._row_lens(B, S, true_lens)), torch.stack(ks), torch.stack(vs)
 
-    @torch.inference_mode()
+    @serving
     def prefill_with_prefix(self, tokens: torch.Tensor, prefix_k: torch.Tensor,
                             prefix_v: torch.Tensor, prefix_lens: torch.Tensor, *,
                             true_lens: Optional[torch.Tensor] = None):
@@ -522,7 +598,7 @@ class DenseLM(nn.Module):
             lambda i, q, k, v: attn_lib.prefix_attention(q, pk[i], pv[i], lens, k, v),
             true_lens)
 
-    @torch.inference_mode()
+    @serving
     def prefill_with_host_prefix(self, tokens: torch.Tensor, prefix_lens: torch.Tensor, *,
                                  prefix_cb: Callable,
                                  true_lens: Optional[torch.Tensor] = None,
@@ -570,6 +646,7 @@ class DenseLM(nn.Module):
 
     def _decode(self, tokens: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
         cfg = self.cfg
+        cache = reduce_partials(cache)
         lens = cache["lens"]
         B = tokens.shape[0]
         rows = torch.arange(B, device=self.device)
@@ -578,10 +655,13 @@ class DenseLM(nn.Module):
         ctx = current_context()
         blocks = (cfg.kv_shard_mode == "blocks" and not int8 and ctx is not None
                   and ctx.distributed and "model" in ctx.mesh.mesh_dim_names)
-        x = self.embed_tokens(tokens.to(self.device))
+        follow = kv_follow_queries(cfg)
+        x = shard(self.embed_tokens(tokens.to(self.device)), "batch", None)
         for i, blk in enumerate(self.layers):
             h = rms_norm(x, blk.ln1, cfg.rms_eps)
-            q, k, v = project_qkv(blk.attn, cfg, h[:, None, :], lens[:, None])
+            q, k, v = project_qkv(blk.attn, cfg, h[:, None, :], lens[:, None], kv_follow=follow)
+            if follow:  # the cache keeps every KV head
+                k, v = kv_heads(k, cfg), kv_heads(v, cfg)
             if int8:
                 kq, vq, k_scale, v_scale = quantize_kv(k[:, 0], v[:, 0])
                 for name, new in (("k", kq), ("v", vq), ("k_scale", k_scale),
@@ -595,11 +675,13 @@ class DenseLM(nn.Module):
                 o, _, _ = attn_lib.decode_attention_blocksharded(
                     q[:, 0], cache["k"][i], cache["v"][i], k[:, 0], v[:, 0], lens)
             else:
-                cache["k"][i, rows, pos] = k[:, 0].to(cache["k"].dtype)
-                cache["v"][i, rows, pos] = v[:, 0].to(cache["v"].dtype)
+                attn_lib.write_kv(cache["k"][i], cache["v"][i], k[:, 0], v[:, 0], lens)
                 kc, vc = cache["k"][i], cache["v"][i]
             if not blocks:
                 o = attn_lib.decode_attention(q[:, 0], kc, vc, lens + 1)
-            x = x + out_proj(blk.attn, o)
-            x = x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps))
+            # the residual stream whole over the model axis (as in prefill):
+            # a partial sum left to DTensor would make every model rank
+            # compute the next layer's full projections
+            x = shard(x + out_proj(blk.attn, o), "batch", None)
+            x = shard(x + mlp_apply(blk, rms_norm(x, blk.ln2, cfg.rms_eps)), "batch", None)
         return self.final_logits(x), {**cache, "lens": lens + 1}

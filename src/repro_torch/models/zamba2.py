@@ -26,10 +26,11 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.config import ArchConfig
+from repro_torch.config import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import reduce_partials, shard
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.api import token_specs
 from repro_torch.models.layers import (
     commit_rows,
     dense_init,
@@ -42,6 +43,7 @@ from repro_torch.models.layers import (
     mlp_params,
     param,
     rms_norm,
+    serving,
     softmax_xent,
     swiglu_apply,
     swiglu_logical_axes,
@@ -174,6 +176,11 @@ class Zamba2LM(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        """{name: (shape, dtype name, logical axes)} of a dry-run cell's
+        inputs (the token inputs)."""
+        return token_specs(shape)
+
     # -- caches -------------------------------------------------------------------
     def cache_capacity(self, seq_len: int) -> int:
         w = self.cfg.long_context_window
@@ -234,7 +241,7 @@ class Zamba2LM(nn.Module):
         return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     # -- serve -------------------------------------------------------------------
-    @torch.inference_mode()
+    @serving
     def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
                 impl: str = "kernel") -> Tuple[torch.Tensor, Cache]:
         """tokens: [B, S] -> (next-token logits [B, V] f32, cache).  The
@@ -274,7 +281,7 @@ class Zamba2LM(nn.Module):
         logits = logits_last(rms_norm(x[:, -1], self.final_norm, cfg.rms_eps), self.unembed)
         return logits, cache
 
-    @torch.inference_mode()
+    @serving
     def decode(self, tokens: torch.Tensor, cache: Cache,
                active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
         """tokens: [B] -> (logits [B, V] f32, cache).  Updates the state and
@@ -283,6 +290,7 @@ class Zamba2LM(nn.Module):
         step advances (all when None); the other rows are computed, and
         their cache and ``lens`` are left as they were."""
         cfg = self.cfg
+        cache = reduce_partials(cache)
         lens = cache["lens"]
         rows = None if active is None else active.nonzero()[:, 0]
         x = shard(embed_lookup(self.embed, tokens.to(self.device)).to(self.act_dtype),

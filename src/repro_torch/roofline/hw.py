@@ -1,10 +1,12 @@
 """Hardware profiles.
 
-``tpu_v5e`` is the deployment target (roofline constants per the assignment:
-197 TFLOP/s bf16, 819 GB/s HBM, ~50 GB/s/link ICI).  The GPU profiles
-reproduce the paper's testbeds (Table 1) for the paper-figure benchmarks; the
-host-side numbers follow the paper's §2.2 (A10G hosts ≈ EPYC 7R32 with
-~100–400 GB/s depending on the g5 instance size, §5.5).
+``tpu_v5e`` is the JAX package's profile, kept here unchanged for parity
+with its serving simulator and perf model; no number of the port is taken
+on or for it.  The port's roofline (``roofline/analysis.py``) reads
+``h100_sxm``.  The GPU profiles reproduce the paper's testbeds (Table 1)
+for the paper-figure benchmarks; the host-side numbers follow the paper's
+§2.2 (A10G hosts ≈ EPYC 7R32 with ~100–400 GB/s depending on the g5
+instance size, §5.5).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ class HardwareProfile:
 _P = HardwareProfile
 
 HARDWARE: Dict[str, HardwareProfile] = {
-    # --- deployment target -----------------------------------------------------
+    # --- the JAX package's profile (parity with its simulator) ----------------
     "tpu_v5e": _P(
         name="tpu_v5e",
         device_flops=197e12,

@@ -29,7 +29,7 @@ from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.config import ArchConfig, TrainConfig
 from repro_torch.distributed.collectives import int8_roundtrip
@@ -106,6 +106,13 @@ def make_train_step(model: nn.Module, train_cfg: TrainConfig
             # could land the batch sharding on the accum axis: pin it, the
             # accum axis replicated and the batch sharded
             def split(v):
+                if isinstance(v, DTensor) and any(p.is_shard(0) for p in v.placements):
+                    # the batch whole on each rank first (token ids: small), so
+                    # that the reshape never asks the accum axis to take the
+                    # batch's sharding, which it cannot when accum does not
+                    # divide the batch shards
+                    v = v.redistribute(v.device_mesh, [Replicate() if p.is_shard(0) else p
+                                                       for p in v.placements])
                 y = v.reshape((accum, v.shape[0] // accum) + tuple(v.shape[1:]))
                 return shard(y, None, "batch", *([None] * (y.ndim - 2)))
 

@@ -55,7 +55,9 @@ for n in ("repro_torch.core.transfer", "repro_torch.core.prefix_cache",
           "repro_torch.examples.train_mini", "repro_torch.distributed.sharding",
           "repro_torch.distributed.zero", "repro_torch.distributed.elastic",
           "repro_torch.distributed.mesh_check", "repro_torch.launch.mesh",
-          "repro_torch.testing"):
+          "repro_torch.testing", "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+          "repro_torch.roofline.opcount", "repro_torch.roofline.structural",
+          "repro_torch.roofline.analysis", "repro_torch.benchmarks.roofline_table"):
     assert n in names, n
 import chip_smoke
 bad = sorted(m for m in sys.modules

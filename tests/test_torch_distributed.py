@@ -30,6 +30,18 @@ CPU at the smoke size (fp32).
     reference's contiguous oracle with its test's shapes and lengths
     (1e-5), and the dense decode's ``kv_shard_mode="blocks"`` branch
     against one device's decode (1e-5);
+  - serving on a mesh against the same weights with no context: a prefill
+    of 4 x 16 tokens (the flash kernel's wrapper, the scans' on each rank's
+    block) and 3 decode steps, every step's logits within 1e-5, for qwen3
+    (GQA: K/V projected per query head on 2 x 2 and 1 x 4; KV heads
+    sharded; one KV head), deepseek (MHA, MoE), rwkv6 and zamba2 on 2 x 2;
+  - the blocks each rank attends or scans when an axis does not divide:
+    6 query heads on a model axis of 4 (a rank with none), forward and
+    gradients, and one batch row over two data ranks through both scans,
+    against the whole tensors (1e-5);
+  - rwkv6 and zamba2 training on 2 x 2 (the scans through ``on_blocks``)
+    against the no-context loss (rel 1e-5) and gradients
+    (``SSM_GRAD_TOL`` of the largest entry);
   - last, elastic: drop data replica 1 of 2; the survivors' trimmed-batch
     losses equal the single-device losses on the same rows, two
     ``relower_events``, and the dropped ranks leave the loop and exit 0.
@@ -89,6 +101,8 @@ from repro_torch.distributed.sharding import (  # noqa: E402
 from repro_torch.distributed.zero import zero_spec_for, zero_specs  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
+from repro_torch.models import mamba2 as mamba2_lib  # noqa: E402
+from repro_torch.models import rwkv6 as rwkv6_lib  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.bridge import params_to_reference, reference_leaves  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
@@ -100,6 +114,24 @@ TIMEOUT_S = 60
 MESHES = {"16x16": (("data", "model"), (16, 16)), "4x2": (("data", "model"), (4, 2)),
           "pod2x16x16": (("pod", "data", "model"), (2, 16, 16))}
 LOSS_ARCHS = ("qwen3-0.6b", "deepseek-moe-16b")
+SSM_ARCHS = ("rwkv6-7b", "zamba2-7b")
+# The chunked scans' backward amplifies float order: moving rwkv6's ``wo`` by
+# one part in 1e7 moves ``u``'s gradient by 2.8e-5 of the largest entry, and
+# a mesh's other summation order reaches 8.6e-5 (rwkv6) and 5.7e-5 (zamba2)
+# of it.  The wrong layout of B and C's gradient this check was written
+# for was 0.67 of it.
+SSM_GRAD_TOL = 2e-4
+SERVE_TOL = 1e-5
+SERVE_STEPS = 3
+SERVE_CASES = {  # name: (arch, mesh, config overrides)
+    "qwen3-0.6b-2x2": ("qwen3-0.6b", (2, 2), {}),  # K/V per query head (kv_follow)
+    "qwen3-0.6b-1x4": ("qwen3-0.6b", (1, 4), {}),  # one query head a rank
+    "qwen3-0.6b-kv-heads-2x2": ("qwen3-0.6b", (2, 2), {"kv_shard_mode": "heads"}),
+    "qwen3-0.6b-one-kv-head-2x2": ("qwen3-0.6b", (2, 2), {"num_kv_heads": 1}),
+    "deepseek-moe-16b-2x2": ("deepseek-moe-16b", (2, 2), {}),
+    "rwkv6-7b-2x2": ("rwkv6-7b", (2, 2), {}),
+    "zamba2-7b-2x2": ("zamba2-7b", (2, 2), {}),
+}
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-5  # of the largest gradient entry
 TRAJ_TOL = 1e-5
@@ -402,6 +434,92 @@ def _check_decode_blocks(rank, out):
             "placements": str(cache["k"].placements)}
 
 
+def _serve(model, tokens):
+    """Logits of a prefill and :data:`SERVE_STEPS` decode steps, whole."""
+    logits, cache = model.prefill(tokens, capacity=tokens.shape[1] + SERVE_STEPS)
+    got = [_full(logits)]
+    for t in range(SERVE_STEPS):
+        logits, cache = model.decode(torch.arange(tokens.shape[0]) * 7 + 3 + t, cache)
+        got.append(_full(logits))
+    return got
+
+
+def _check_serve(rank, out, name):
+    arch, shape, over = SERVE_CASES[name]
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    model = get_model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(1, 400, (4, 16)))
+    want = _serve(model, tokens)
+    ctx = ShardingContext.for_arch(cfg, init_device_mesh("cpu", shape,
+                                                         mesh_dim_names=("data", "model")))
+    with activate(ctx):
+        distribute_params(model, ctx)
+        got = _serve(model, ctx.distribute(tokens, ("batch", None)))
+    return {"err": [float((a - b).abs().max()) for a, b in zip(got, want)]}
+
+
+def _check_uneven(rank, out):
+    """The per-rank blocks where an axis does not divide the mesh dim."""
+    rng = np.random.default_rng(2)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    res = {}
+    # 6 query heads on a model axis of 4: blocks of 2, 2, 2 and none
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), num_heads=6)
+    ctx = ShardingContext.for_arch(cfg, init_device_mesh("cpu", (1, 4),
+                                                         mesh_dim_names=("data", "model")))
+    q, k, v, w = rand(2, 8, 6, 16), rand(2, 8, 2, 16), rand(2, 8, 2, 16), rand(2, 8, 6, 16)
+    qkv = [t.requires_grad_() for t in (q, k, v)]
+    want = attn_lib.chunked_attention(*qkv)
+    want_g = torch.autograd.grad((want * w).sum(), qkv)
+    with activate(ctx):
+        qkv = [ctx.distribute(t.detach(), (None,) * 4).requires_grad_() for t in (q, k, v)]
+        o = attn_lib.chunked_attention(*qkv)
+        g = torch.autograd.grad((o * ctx.distribute(w, (None, None, "heads", None))).sum(), qkv)
+        res["heads"] = max(float((_full(a) - b).abs().max())
+                           for a, b in zip([o.detach(), *g], [want.detach(), *want_g]))
+    # one batch row over two data ranks: the scans on whole batch blocks
+    mesh = _mesh22()
+    H, N, P, f = 4, 16, 8, torch.nn.functional.softplus
+    cases = {"rwkv6": (rwkv6_lib.scan("kernel"), "rwkv6-7b",
+                       [rand(1, 16, H, N) for _ in range(3)]
+                       + [torch.sigmoid(rand(1, 16, H, N)), rand(H, N), rand(1, H, N, N)]),
+             "mamba2": (mamba2_lib.ssd("kernel"), "zamba2-7b",
+                        [rand(1, 16, H, P), f(rand(1, 16, H)), -torch.exp(rand(H)),
+                         rand(1, 16, N), rand(1, 16, N), rand(H), rand(1, H, N, P)])}
+    for key, (fn, arch, args) in cases.items():
+        want = fn(*args)
+        ctx = ShardingContext.for_arch(get_smoke_config(arch), mesh)
+        with activate(ctx):
+            got = fn(*(ctx.distribute(a, (None,) * a.ndim) for a in args))
+            res[key] = max(float((_full(a) - b).abs().max()) for a, b in zip(got, want))
+    return res
+
+
+def _check_ssm_loss(rank, out, arch):
+    """Training through the scans on each rank's block, against the same
+    step with no context."""
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in _batch_np(cfg, 8, 1).items()}
+    want, _, want_g = value_and_grad(model, trainable(model), batch)
+    ctx = ShardingContext.for_arch(cfg, _mesh22())
+    with activate(ctx):
+        distribute_params(model, ctx)
+        loss, _, grads = value_and_grad(model, trainable(model), {
+            k: ctx.distribute(v, ("batch", None)) for k, v in batch.items()})
+        grads = {k: _full(g.redistribute(g.device_mesh, model.get_parameter(k).placements))
+                 for k, g in grads.items()}
+        loss = float(_full(loss))
+    return {"loss": loss, "want": float(want),
+            "grad_err": max(float((grads[k] - g).abs().max()) for k, g in want_g.items()),
+            "scale": max(float(g.abs().max()) for g in want_g.values())}
+
+
 def _check_elastic(rank, out):
     cfg = get_smoke_config("qwen3-0.6b")
     state = torch.load(out / "qwen3-0.6b.pt")
@@ -433,6 +551,10 @@ CHECKS = {
     "blocks": _check_blocks,
     "decode_blocks": _check_decode_blocks,
     "mesh_check": _check_mesh_check,
+    **{f"serve_{name}": (lambda r, o, name=name: _check_serve(r, o, name)) for name in SERVE_CASES},
+    "uneven": _check_uneven,
+    **{f"ssm_loss_{arch}": (lambda r, o, arch=arch: _check_ssm_loss(r, o, arch))
+       for arch in SSM_ARCHS},
     "elastic": _check_elastic,  # last: it drops ranks 2 and 3
 }
 
@@ -659,6 +781,29 @@ def test_decode_blocks_branch_matches_single_device(run):
         assert res["err"] <= 1e-5, res
         # the cache's sequence axis over "model"
         assert res["placements"] == "(Replicate(), Shard(dim=2))"
+
+
+@pytest.mark.parametrize("name", list(SERVE_CASES))
+def test_mesh_serve_matches_no_context(run, name):
+    """A prefill and 3 decode steps on the mesh give every rank the logits
+    of the same steps with no context."""
+    for rank in range(WORLD):
+        res = _entry(run, f"serve_{name}", rank)
+        assert len(res["err"]) == SERVE_STEPS + 1 and max(res["err"]) <= SERVE_TOL, res
+
+
+@pytest.mark.parametrize("part", ["heads", "rwkv6", "mamba2"])
+def test_uneven_blocks_match_whole(run, part):
+    for rank in range(WORLD):
+        assert _entry(run, "uneven", rank)[part] <= SERVE_TOL
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_mesh_ssm_loss_and_grads_match_no_context(run, arch):
+    for rank in range(WORLD):
+        res = _entry(run, f"ssm_loss_{arch}", rank)
+        assert abs(res["loss"] - res["want"]) <= LOSS_RTOL * abs(res["want"]), res
+        assert res["grad_err"] <= SSM_GRAD_TOL * res["scale"], res
 
 
 def test_elastic_drop_replica(run):
